@@ -1,0 +1,37 @@
+"""muse_tpu_torch — MUSE (Marginal Unbiased Score Expansion) on PyTorch and CUDA.
+
+The port of ``muse_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100. Module
+names mirror ``muse_tpu``'s. Plain tensor work is PyTorch on an explicit
+device; each Pallas kernel of ``muse_tpu`` on a ported path becomes a
+hand-written CUDA kernel (``csrc/``, built with ``nvcc`` at first use).
+The θ loop runs on the host in float64; the device works in float32.
+
+Ported so far (slice 1): the full MUSE pipeline — ``muse_fit``, ``get_J``,
+finite-difference ``get_H``, ``finalize_result`` — on the field GRF
+(``models.grf_field_problem``), whose spectrum quadform runs in
+``csrc/spectrum_quadform.cu``.
+"""
+
+import torch as _torch
+
+# TF32 keeps about three decimal digits. A MUSE score is an O(N)-term sum
+# whose per-sim scatter sits in its low bits (docs/internals.md, "f32 score
+# precision"), so every float32 product on the card stays full precision.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .adapters.simple import SimpleMuseProblem  # noqa: E402
+from .problem import MuseProblem, check_self_consistency  # noqa: E402
+from .result import MuseResult, load_result  # noqa: E402
+from .solver.jacobians import get_H, get_J  # noqa: E402
+from .solver.muse import muse, muse_fit  # noqa: E402
+from .theta import ThetaSpec  # noqa: E402
+from . import distributions  # noqa: E402
+
+__all__ = [
+    "MuseProblem", "SimpleMuseProblem", "MuseResult", "load_result", "muse",
+    "muse_fit", "get_J", "get_H", "check_self_consistency", "ThetaSpec",
+    "distributions",
+]
+
+__version__ = "0.3.0"

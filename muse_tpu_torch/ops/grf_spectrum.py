@@ -1,0 +1,157 @@
+"""The GRF spectrum quadform, Σ_k w_k|ẑ_k|²/C_k per lane, on a CUDA kernel.
+
+Counterpart of ``muse_tpu/ops/pallas_grf.py``'s ``spectrum_quadform``. The
+value runs in the hand-written kernel ``csrc/spectrum_quadform.cu`` (which
+replaces the TPU kernel ``_quad_only_kernel``, pallas_grf.py:137) for CUDA
+tensors, and in :func:`spectrum_quadform_plain` for CPU tensors. A CUDA
+tensor never falls back to the plain version: the kernel launches or the
+call raises.
+
+Layout as in the JAX package: spectra are packed re|im along the last
+axis, ``z_ri`` of shape (B, n, 2m) with m = n//2 + 1 (:func:`pack_rfft2`),
+and the weights ``invCw2`` of shape (n, 2m) (:func:`pack_weights`).
+
+Per-lane θ-scores take ``torch.func.vmap(torch.func.grad(log_like))`` over
+lanes that each call the quadform with B=1. :class:`SpectrumQuadform`'s
+``vmap`` rule folds the vmapped axis into the kernel's B axis, so one
+batched evaluation is ONE kernel launch for all lanes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["spectrum_quadform", "spectrum_quadform_plain",
+           "spectrum_quadform_cuda", "SpectrumQuadform", "pack_rfft2",
+           "pack_weights", "reset_counts"]
+
+
+def pack_rfft2(z: torch.Tensor) -> torch.Tensor:
+    """(…, n, n) real field → (…, n, 2m) packed rfft2 spectrum."""
+    zf = torch.fft.rfft2(z, dim=(-2, -1))
+    return torch.cat([zf.real, zf.imag], dim=-1)
+
+
+def pack_weights(a: torch.Tensor) -> torch.Tensor:
+    """(n, m) per-mode weights → (n, 2m) matching the packed layout."""
+    return torch.cat([a, a], dim=-1)
+
+
+def spectrum_quadform_plain(z_ri: torch.Tensor,
+                            invCw2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: (B, n, 2m), (n, 2m) → (B,)."""
+    return torch.einsum("bnm,nm->b", z_ri * z_ri, invCw2)
+
+
+def spectrum_quadform_cuda(z_ri: torch.Tensor,
+                           invCw2: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card → (B,).
+
+    ``spectrum_quadform_cuda.launches`` counts the launches."""
+    from .kernels import load_library
+
+    if not (z_ri.is_cuda and invCw2.is_cuda):
+        raise ValueError("spectrum_quadform_cuda takes CUDA tensors, got "
+                         f"{z_ri.device} and {invCw2.device}")
+    if z_ri.device != invCw2.device:
+        raise ValueError(f"z_ri on {z_ri.device} but invCw2 on "
+                         f"{invCw2.device}")
+    if z_ri.dtype != torch.float32 or invCw2.dtype != torch.float32:
+        raise TypeError("spectrum_quadform_cuda takes float32, got "
+                        f"{z_ri.dtype} and {invCw2.dtype}")
+    if z_ri.dim() != 3 or tuple(invCw2.shape) != tuple(z_ri.shape[1:]):
+        raise ValueError(f"shapes (B, n, 2m) and (n, 2m) expected, got "
+                         f"{tuple(z_ri.shape)} and {tuple(invCw2.shape)}")
+    if not (z_ri.is_contiguous() and invCw2.is_contiguous()):
+        raise ValueError("spectrum_quadform_cuda takes contiguous tensors")
+    B = z_ri.shape[0]
+    L = z_ri.shape[1] * z_ri.shape[2]
+    if not 1 <= B <= 65535 or L == 0:
+        raise ValueError(f"need 1 <= B <= 65535 lanes and L > 0, got B={B}, "
+                         f"L={L}")
+    lib = load_library()
+    slab = int(lib.muse_spectrum_quadform_slab())
+    S = -(-L // slab)
+    partial = torch.empty((B, S), dtype=torch.float32, device=z_ri.device)
+    out = torch.empty((B,), dtype=torch.float32, device=z_ri.device)
+    stream = torch.cuda.current_stream(z_ri.device).cuda_stream
+    rc = lib.muse_spectrum_quadform_f32(
+        z_ri.data_ptr(), invCw2.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), B, L, S, stream)
+    if rc != 0:
+        raise RuntimeError(f"spectrum_quadform kernel launch failed: CUDA "
+                           f"error {rc}")
+    spectrum_quadform_cuda.launches += 1
+    return out
+
+
+spectrum_quadform_cuda.launches = 0
+
+
+def _quadform_value(z_ri, invCw2):
+    if z_ri.is_cuda:
+        return spectrum_quadform_cuda(z_ri.contiguous(), invCw2.contiguous())
+    if z_ri.device.type == "cpu":
+        return spectrum_quadform_plain(z_ri, invCw2)
+    raise ValueError(f"spectrum_quadform has no kernel for {z_ri.device}")
+
+
+class SpectrumQuadform(torch.autograd.Function):
+    """quad_b = Σ z_ri[b]²·invCw2 with a recomputing backward.
+
+    The backward is plain torch, as the JAX custom VJP's is
+    (pallas_grf.py:192-196): dz = 2·ct·z·invCw2 and d invCw2 = Σ_b ct_b·z².
+    It keeps the inputs and recomputes dz rather than storing a gradient
+    tensor in the forward. ``SpectrumQuadform.evaluations`` counts forward
+    evaluations on any device; on a card it equals the kernel's launches.
+    """
+
+    evaluations = 0
+
+    @staticmethod
+    def forward(z_ri, invCw2):
+        SpectrumQuadform.evaluations += 1
+        return _quadform_value(z_ri, invCw2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        z_ri, invCw2 = ctx.saved_tensors
+        dz = dic = None
+        if ctx.needs_input_grad[0]:
+            dz = (2.0 * ct)[:, None, None] * z_ri * invCw2[None]
+        if ctx.needs_input_grad[1]:
+            dic = torch.einsum("b,bnm->nm", ct, z_ri * z_ri)
+        return dz, dic
+
+    @staticmethod
+    def vmap(info, in_dims, z_ri, invCw2):
+        z_dim, w_dim = in_dims
+        if z_dim is None:                  # only the weights are batched
+            z_ri = z_ri.expand((info.batch_size,) + tuple(z_ri.shape))
+        else:
+            z_ri = z_ri.movedim(z_dim, 0)
+        V, B = z_ri.shape[:2]
+        if w_dim is None:
+            # fold the vmapped axis into the kernel's lane axis: one launch
+            out = SpectrumQuadform.apply(
+                z_ri.reshape((V * B,) + tuple(z_ri.shape[2:])), invCw2)
+            return out.reshape(V, B), 0
+        invCw2 = invCw2.movedim(w_dim, 0)
+        out = torch.stack([SpectrumQuadform.apply(z_ri[v], invCw2[v])
+                           for v in range(V)])
+        return out, 0
+
+
+def spectrum_quadform(z_ri: torch.Tensor, invCw2: torch.Tensor) -> torch.Tensor:
+    """Σ_k w_k|ẑ_k|²/C_k per lane: (B, n, 2m), (n, 2m) → (B,)."""
+    return SpectrumQuadform.apply(z_ri, invCw2)
+
+
+def reset_counts() -> None:
+    """Zero the kernel's launch count and the forward-evaluation count."""
+    spectrum_quadform_cuda.launches = 0
+    SpectrumQuadform.evaluations = 0

@@ -1,0 +1,244 @@
+"""Batched problem: the device execution path behind the MUSE solver.
+
+Counterpart of ``muse_tpu/solver/compiled.py``. Every per-simulation
+quantity of an outer iteration is computed for all lanes of a chunk at
+once, eagerly, on the problem's device:
+
+  * ``muse_step``  — sample all sims at θ (common random numbers), run all
+                     latent MAP solves in one batched call, and take the
+                     per-lane θ-gradients (src/muse.jl:169-176);
+  * ``j_sims``     — get_J's per-sim pipeline (src/muse.jl:508-513);
+  * ``h_fiducial``/``h_fd`` — get_H's finite-difference pipeline, batched
+                     over sims × θ-columns × stencil (src/muse.jl:417-433).
+
+Lane 0..B-1 of every batched tensor is one simulation; the observed data
+ride as the lane whose global id is 0 in ``muse_step``
+(``[nothing; split_rng(rng, nsims)]``, src/muse.jl:169). Per-lane
+θ-gradients are ``torch.func.vmap(torch.func.grad(log_like))``, so a
+kernel with a ``vmap`` rule (``ops/grf_spectrum.py``) sees every lane in
+one launch. Sampling is a loop over the lanes' generators.
+
+Not ported yet: the generic batched L-BFGS MAP solver for problems
+without ``custom_zhat`` (ROADMAP Queue 1 item 6), the white-hoisted step
+(item 3) and implicit-differentiation H (item 4). The
+JAX package's ``optimization_barrier`` fences, odd-lane padding and
+value certifier guard against faults of the TPU compiler and have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import grad, hessian, vmap
+
+from ..problem import MuseProblem
+from ..theta import ThetaSpec
+from ..utils.keys import lane_generator
+
+__all__ = ["CompiledProblem"]
+
+
+class CompiledProblem:
+    """Batched view of a :class:`MuseProblem` on its device."""
+
+    def __init__(self, problem: MuseProblem, spec: ThetaSpec, theta0_flat,
+                 *, dtype=torch.float32):
+        self.problem = problem
+        self.spec = spec
+        self.dtype = dtype
+        self.device = torch.device(problem.device)
+        # z's shape and flat size from one example draw
+        _, z0 = problem.sample_x_z(lane_generator(0, self.device),
+                                   spec.unflatten(self.theta(theta0_flat)))
+        self.z_shape = tuple(z0.shape)
+        self.nz = int(z0.numel())
+        self.x_obs = problem.x.to(self.device)
+
+    def theta(self, th_flat) -> torch.Tensor:
+        """A flat θ (numpy or tensor) on the device in the working dtype."""
+        return torch.as_tensor(th_flat, dtype=self.dtype, device=self.device)
+
+    # ------------------------------------------------------------ #
+    # per-lane building blocks (θ and z flat)
+    # ------------------------------------------------------------ #
+
+    def _ll(self, x, z_flat, th_flat):
+        """log P(x, z | θ), θ untransformed-flat, z flat."""
+        return self.problem.log_like(x, z_flat.reshape(self.z_shape),
+                                     self.spec.unflatten(th_flat)
+                                     ).to(self.dtype)
+
+    def _ll_t(self, x, z_flat, th_t_flat):
+        """The same density seen from transformed θ-space (with the
+        problem's volume convention, src/turing.jl:171-186)."""
+        th = self.problem.inv_transform_theta(th_t_flat)
+        return self._ll(x, z_flat, th) - self.problem._log_volume(th)
+
+    def _sample_flat(self, seed, th_flat):
+        x, z = self.problem.sample_x_z(lane_generator(seed, self.device),
+                                       self.spec.unflatten(th_flat))
+        return x, z.reshape(-1).to(self.dtype)
+
+    def _sample_batch(self, seeds, th_flats):
+        """Sample lane i from ``seeds[i]`` at θ ``th_flats[i]`` and stack."""
+        xs, Zs = zip(*(self._sample_flat(s, t)
+                       for s, t in zip(seeds, th_flats)))
+        return torch.stack(xs), torch.stack(Zs)
+
+    def _zhat_guess_flat(self, x, z_flat, th_flat):
+        g = self.problem.zhat_guess_from_truth(
+            x, z_flat.reshape(self.z_shape), self.spec.unflatten(th_flat))
+        return g.reshape(-1).to(self.dtype)
+
+    def _grads_th(self, xs, Z, th_flat):
+        """Per-lane ∂θ log_like in untransformed space: the problem's
+        analytic override when given (src/interface.jl:56-58), else
+        ``vmap(grad)`` — one batched evaluation for all lanes."""
+        if self.problem.grad_theta_log_like is not None:
+            def one(x, z):
+                g = self.problem.grad_theta_log_like(
+                    x, z.reshape(self.z_shape), self.spec.unflatten(th_flat))
+                return self.spec.flatten(g).to(self.dtype)
+            return vmap(one)(xs, Z)
+        return vmap(lambda x, z: grad(
+            lambda t: self._ll(x, z, t))(th_flat))(xs, Z)
+
+    # ------------------------------------------------------------ #
+    # batched MAP solve (ẑ_at_θ, all lanes at once)
+    # ------------------------------------------------------------ #
+
+    def _solve_maps(self, xs, Z0, th_flat, atol):
+        """All lanes' latent MAP solves → (Z, aux) with per-lane
+        diagnostics (the ``ẑ_history`` analog)."""
+        if self.problem.custom_zhat is None:
+            raise NotImplementedError(
+                "the generic batched L-BFGS MAP solver is not ported yet "
+                "(ROADMAP Queue 1 item 6); give the problem a custom_zhat")
+        Z, aux = self.problem.custom_zhat(xs, Z0, th_flat, atol)
+        B = Z.shape[0]
+        aux.setdefault("converged", torch.ones(B, dtype=torch.bool,
+                                               device=Z.device))
+        aux.setdefault("failed", torch.zeros(B, dtype=torch.bool,
+                                             device=Z.device))
+        return Z, aux
+
+    # ------------------------------------------------------------ #
+    # entry points
+    # ------------------------------------------------------------ #
+
+    def _step_from_xs(self, xs_all, th, th_t, Z_prev, lane_ids, atol):
+        """Muse-step tail: data-lane mix-in, batched MAP solves, per-lane
+        θ-gradients in both spaces (src/muse.jl:169-181)."""
+        data = (lane_ids == 0).reshape((-1,) + (1,) * (xs_all.dim() - 1))
+        xs = torch.where(data, self.x_obs[None].to(xs_all.dtype), xs_all)
+        Z, aux = self._solve_maps(xs, Z_prev, th, atol)
+        g = self._grads_th(xs, Z, th)
+        if self.problem.theta_bijector is None:
+            g_t = g        # identity transform: the two gradients coincide
+        else:
+            g_t = vmap(lambda x, z: grad(
+                lambda tt: self._ll_t(x, z, tt))(th_t))(xs, Z)
+        return {"g": g, "g_t": g_t, "Z": Z, **aux}
+
+    def muse_step(self, th, th_t, seeds, Z_prev, lane_ids, atol):
+        """One outer iteration's device work for a chunk of lanes.
+
+        ``seeds`` has one seed per lane; the lane whose global id (in
+        ``lane_ids``) is 0 has its sample replaced by the observed data.
+        Sampling it anyway keeps every lane's work identical. Returns the
+        per-lane θ-gradients in both spaces, the new warm starts ``Z`` and
+        the MAP diagnostics (src/muse.jl:169-181)."""
+        xs_all, _ = self._sample_batch(seeds, [th] * len(seeds))
+        return self._step_from_xs(xs_all, th, th_t, Z_prev, lane_ids, atol)
+
+    def muse_step_white(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the white-hoisted muse step is not ported yet (ROADMAP Queue 1 "
+            "item 3)")
+
+    def sample_whites(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the white-hoisted muse step is not ported yet (ROADMAP Queue 1 "
+            "item 3)")
+
+    def j_sims(self, seeds, th, atol):
+        """get_J per-sim pipeline: sample at θ₀, MAP warm-started from the
+        true z, untransformed θ-gradient (src/muse.jl:510-513)."""
+        xs, Zs = self._sample_batch(seeds, [th] * len(seeds))
+        Z, aux = self._solve_maps(xs, Zs, th, atol)
+        return {"g": self._grads_th(xs, Z, th), "Z": Z, **aux}
+
+    def h_fiducial(self, seeds, th, atol):
+        """get_H fiducial fits: sims at θ₀, MAP from ẑ_guess_from_truth
+        (src/muse.jl:417-423)."""
+        xs, Zs = self._sample_batch(seeds, [th] * len(seeds))
+        Z0 = torch.stack([self._zhat_guess_flat(x, z, th)
+                          for x, z in zip(xs, Zs)])
+        Z, aux = self._solve_maps(xs, Z0, th, atol)
+        return {"Z": Z, **aux}
+
+    def h_fd(self, seeds, th, steps, Zfid, atol, offsets):
+        """get_H finite-difference mode, batched.
+
+        For every (sim, θ-column j, stencil offset): regenerate the sim at
+        θ₀ + offset·εⱼeⱼ with the SAME seed, MAP at the fiducial θ₀
+        warm-started from the sim's fiducial fit, θ-gradient at θ₀
+        (src/muse.jl:426-433). All nsims·nθ·stencil solves run as one
+        batch. Returns g of shape (nsims, nθ, stencil, nθ)."""
+        nsims, ntheta, ns = len(seeds), th.shape[0], len(offsets)
+        eye = torch.eye(ntheta, dtype=self.dtype, device=self.device)
+        offs = torch.as_tensor(offsets, dtype=self.dtype, device=self.device)
+        steps = torch.as_tensor(steps, dtype=self.dtype, device=self.device)
+        # (nθ columns, stencil, nθ coords)
+        th_pert = th[None, None, :] + (offs[None, :, None]
+                                       * steps[:, None, None]
+                                       * eye[:, None, :])
+        flat_seeds = [s for s in seeds for _ in range(ntheta * ns)]
+        flat_th = list(th_pert.reshape(-1, ntheta)) * nsims
+        Z0 = Zfid[:, None, :].expand(nsims, ntheta * ns, self.nz)
+        xs, _ = self._sample_batch(flat_seeds, flat_th)
+        Z, aux = self._solve_maps(xs, Z0.reshape(-1, self.nz), th, atol)
+        g = self._grads_th(xs, Z, th).reshape(nsims, ntheta, ns, ntheta)
+        return {"g": g, "Z": Z,
+                "converged": aux["converged"].reshape(nsims, ntheta, ns),
+                "failed": aux["failed"].reshape(nsims, ntheta, ns)}
+
+    def h_implicit_with(self, precond=None):
+        raise NotImplementedError(
+            "implicit-differentiation get_H is not ported yet (ROADMAP "
+            "Queue 1 item 4)")
+
+    @property
+    def certifier(self):
+        raise NotImplementedError(
+            "the batch-width value certifier guards a TPU compiler fault and "
+            "is left out of the port (ROADMAP, 'Left out on purpose')")
+
+    # ------------------------------------------------------------ #
+    # tiny θ-space derivatives (prior / transforms)
+    # ------------------------------------------------------------ #
+
+    def _lp_t(self, th_t):
+        th = self.problem.inv_transform_theta(th_t)
+        return (torch.as_tensor(self.problem.log_prior(
+            self.spec.unflatten(th))).to(self.dtype)
+            - self.problem._log_volume(th))
+
+    def _lp_u(self, th):
+        return torch.as_tensor(self.problem.log_prior(
+            self.spec.unflatten(th))).to(self.dtype)
+
+    def prior_grad_t(self, th_t):
+        return grad(self._lp_t)(th_t)
+
+    def prior_hess_t(self, th_t):
+        return hessian(self._lp_t)(th_t)
+
+    def prior_hess_u(self, th):
+        return hessian(self._lp_u)(th)
+
+    def transform(self, th):
+        return self.problem.transform_theta(th)
+
+    def inv_transform(self, th_t):
+        return self.problem.inv_transform_theta(th_t)

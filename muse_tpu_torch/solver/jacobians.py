@@ -1,0 +1,308 @@
+"""J and H estimators for the MUSE covariance.
+
+Counterpart of ``muse_tpu/solver/jacobians.py`` (``get_J!``, reference
+``src/muse.jl:484-532``; ``get_H!``, ``src/muse.jl:296-450``):
+
+  * get_J: per-sim [sample at θ₀ → MAP warm-started from the TRUE z →
+    ∇θ logLike] as one batch per chunk; J is the corrected sample
+    covariance of the per-sim scores (src/muse.jl:529). Incremental: only
+    ``nsims − len(result.gs)`` new sims run, and seeds come from the
+    superset-prefix ``sim_seeds`` (src/muse.jl:499-506).
+  * get_H, finite differences: sims × θ-columns × stencil in one batch per
+    chunk (``CompiledProblem.h_fd``), ``fd_order`` 2 or 4. The step
+    defaults to 0.1σ estimated from ``result.gs`` (src/muse.jl:411-414).
+
+Not ported yet: ``fd_order="adaptive"`` (ROADMAP Queue 1 item 5) and
+``implicit_diff=True`` (Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..problem import MuseProblem
+from ..result import MuseResult
+from ..utils.keys import sim_seeds
+from ..utils.progress import ProgressReporter
+from .compiled import CompiledProblem
+from .covariance import finalize_result
+
+__all__ = ["get_J", "get_H", "sample_covariance"]
+
+
+def sample_covariance(gs: np.ndarray) -> np.ndarray:
+    """Corrected sample covariance (src/muse.jl:495,529)."""
+    return np.atleast_2d(np.cov(np.asarray(gs), rowvar=False, ddof=1))
+
+
+def _seed_chunks(seeds, max_batch):
+    """Yield the per-sim seeds in chunks of at most ``max_batch`` lanes."""
+    step = len(seeds) if max_batch is None else max_batch
+    for i in range(0, len(seeds), step):
+        yield seeds[i:i + step]
+
+
+def _setup(result: MuseResult, problem: MuseProblem, theta0, seed, dtype,
+           compiled: Optional[CompiledProblem]):
+    from .muse import _as_seed, _host_flat, resolve_spec
+
+    theta_start = theta0 if theta0 is not None else result.theta
+    if theta_start is None:
+        raise ValueError("θ₀ must be given (or present in result)")
+    spec = resolve_spec(result, theta_start, dtype)
+    th = _host_flat(spec, theta_start)
+    if result.theta is None:
+        result.theta = th
+    if result.theta_struct is None:
+        result.theta_struct = spec.to_user(th)
+    result.key = seed = _as_seed(seed, result)
+    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    return spec, th, seed, comp
+
+
+def get_J(
+    result: MuseResult,
+    problem: MuseProblem,
+    theta0=None,
+    *,
+    seed: Optional[int] = None,
+    nsims: int = 100,
+    grad_z_atol: float = 1e-2,
+    skip_errors: bool = False,
+    covariance_method=sample_covariance,
+    max_batch=None,
+    dtype=torch.float32,
+    compiled: Optional[CompiledProblem] = None,
+    progress: bool = False,
+    warn_reuse: bool = True,
+    checkpoint_file: Optional[str] = None,
+) -> MuseResult:
+    """Monte-Carlo covariance of MAP score gradients at θ₀ (``get_J!``).
+
+    Scores already in ``result.gs`` — including the fit's own per-sim
+    scores stored by ``muse_fit`` (src/muse.jl:231) — count toward
+    ``nsims``; only the remainder is simulated. Scores are appended per
+    device chunk, and ``checkpoint_file`` saves the result after each.
+    """
+    spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
+                                  compiled)
+    nsims_existing = len(result.gs)
+    nsims_remaining = nsims - nsims_existing
+
+    # reliability mask of reused fit scores (muse_fit stores the final
+    # iteration's per-sim MAP convergence)
+    drop_reused = np.zeros(nsims_existing, bool)
+    gs_mask = result.metadata.get("gs_converged")
+    if gs_mask is not None and len(gs_mask) != nsims_existing:
+        warnings.warn(
+            f"get_J: metadata['gs_converged'] has {len(gs_mask)} entries "
+            f"but result.gs holds {nsims_existing} scores — the "
+            "reliability mask is stale; discarding it and treating the "
+            "existing scores as converged.")
+        gs_mask = None
+        result.metadata.pop("gs_converged", None)
+    if nsims_existing and gs_mask is not None:
+        bad = ~np.asarray(gs_mask, bool)
+        if bad.any():
+            if skip_errors:
+                drop_reused = bad
+                warnings.warn(
+                    f"get_J: dropping {int(bad.sum())}/{nsims_existing} "
+                    "reused fit scores whose MAP solves had not converged "
+                    "(skip_errors=True).")
+            else:
+                warnings.warn(
+                    f"get_J: {int(bad.sum())}/{nsims_existing} reused fit "
+                    "scores come from MAP solves that did not converge — "
+                    "J may be inflated. Pass skip_errors=True to drop "
+                    "them, or clear result.gs for a fresh estimate.")
+
+    if nsims_existing and warn_reuse:
+        warnings.warn(
+            f"get_J: reusing {nsims_existing} existing per-sim scores "
+            f"(fit or previous get_J); only {max(nsims_remaining, 0)} new "
+            "sims will run. Clear result.gs or use a fresh MuseResult for "
+            "an independent re-estimate (reference resume semantics, "
+            "src/muse.jl:499-506).")
+    drop_new = []
+    if nsims_remaining > 0:
+        seeds = sim_seeds(seed, nsims)[nsims_existing:]
+        n_dropped = n_nonconv = n_run = 0
+        mask_list = (list(np.asarray(gs_mask, bool))
+                     if gs_mask is not None
+                     else [True] * nsims_existing)
+        th_dev = comp.theta(th)
+        pbar = ProgressReporter(nsims_remaining, "get_J", enabled=progress)
+        try:
+            for chunk in _seed_chunks(seeds, max_batch):
+                c = len(chunk)
+                out = comp.j_sims(chunk, th_dev, grad_z_atol)
+                g_c = out["g"].detach().cpu().numpy().astype(np.float64)
+                failed_c = out["failed"].cpu().numpy()
+                nonconv_c = ~out["converged"].cpu().numpy() & ~failed_c
+                n_nonconv += int(nonconv_c.sum())
+                n_run += c
+                if failed_c.any():
+                    if not skip_errors:
+                        raise RuntimeError(
+                            f"get_J: {int(failed_c.sum())}/{c} MAP solves "
+                            "failed; pass skip_errors=True to drop them.")
+                    n_dropped += int(failed_c.sum())
+                    g_c = g_c[~failed_c]
+                    nonconv_c = nonconv_c[~failed_c]
+                result.gs.extend(list(g_c))
+                mask_list.extend(list(~nonconv_c))
+                result.metadata["gs_converged"] = np.asarray(mask_list, bool)
+                drop_new.extend(list(nonconv_c if skip_errors
+                                     else np.zeros(len(g_c), bool)))
+                if checkpoint_file is not None:
+                    result.save(checkpoint_file)
+                pbar.step(inc=c)
+        finally:
+            pbar.close()
+        if n_nonconv:
+            warnings.warn(
+                f"get_J: {n_nonconv}/{n_run} MAP solves did not converge "
+                "within tolerance; their scores feed J unconverged "
+                "(reference semantics, src/interface.jl:168-171).")
+        if n_dropped:
+            warnings.warn(f"get_J: dropping {n_dropped} failed sims")
+
+    gs = np.asarray(result.gs)
+    drop = np.concatenate([drop_reused, np.asarray(drop_new, bool)]) \
+        if (drop_reused.any() or any(drop_new)) else None
+    if drop is not None and len(drop) == len(gs):
+        if (~drop).sum() < 2:
+            raise RuntimeError(
+                "get_J: fewer than 2 reliable per-sim scores remain after "
+                "dropping unconverged/failed MAPs — rerun with a larger "
+                "nsims or looser grad_z_atol.")
+        gs = gs[~drop]
+    result.J = (np.atleast_2d(np.var(gs, ddof=1)) if gs.shape[1] == 1
+                and gs.ndim == 2 else covariance_method(gs))
+    finalize_result(result, comp)
+    return result
+
+
+def get_H(
+    result: MuseResult,
+    problem: MuseProblem,
+    theta0=None,
+    *,
+    seed: Optional[int] = None,
+    nsims: int = 10,
+    grad_z_atol: float = 1e-2,
+    step=None,
+    fd_order: int = 2,
+    skip_errors: bool = False,
+    implicit_diff: bool = False,
+    max_batch=None,
+    dtype=torch.float32,
+    compiled: Optional[CompiledProblem] = None,
+    progress: bool = False,
+    checkpoint_file: Optional[str] = None,
+) -> MuseResult:
+    """Mean Jacobian of the MAP score wrt the sim-generation θ (``get_H!``),
+    by finite differences: ``fd_order=2`` central differences,
+    ``fd_order=4`` the 5-point Richardson stencil. Per-sim Jacobians land
+    in ``result.Hs`` per device chunk (``result.Hs`` counts toward
+    ``nsims``, src/muse.jl:317-319)."""
+    if implicit_diff:
+        raise NotImplementedError(
+            "implicit-differentiation get_H is not ported yet (ROADMAP "
+            "Queue 1 item 4)")
+    if fd_order == "adaptive":
+        raise NotImplementedError(
+            "adaptive finite differences are not ported yet (ROADMAP Queue 1 "
+            "item 5)")
+    if fd_order == 2:
+        offsets = np.array([1.0, -1.0])
+        weights = np.array([0.5, -0.5])
+    elif fd_order == 4:
+        offsets = np.array([1.0, -1.0, 2.0, -2.0])
+        weights = np.array([8.0, -8.0, -1.0, 1.0]) / 12.0
+    else:
+        raise ValueError("fd_order must be 2 or 4")
+
+    spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
+                                  compiled)
+    ntheta = th.shape[0]
+    nsims_existing = len(result.Hs)
+    nsims_remaining = nsims - nsims_existing
+    if nsims_remaining <= 0:
+        _reduce_H(result, comp)
+        return result
+
+    seeds = sim_seeds(seed, nsims, salt=1)[nsims_existing:]
+
+    # FD step ≈ 0.1σ from the J sims (src/muse.jl:411-414)
+    if step is None:
+        if not result.gs:
+            raise ValueError(
+                "get_H: no `step` given and result.gs is empty — run "
+                "get_J first (src/muse.jl:284-286) or pass `step`.")
+        step = 0.1 / np.std(np.asarray(result.gs), axis=0, ddof=1)
+    step = np.array(np.broadcast_to(np.asarray(step, np.float64),
+                                    (ntheta,)))
+
+    def to_Hs(g, failed):
+        # stale-stencil guard: bitwise-identical ±ε gradients mean the
+        # perturbed MAP re-solves never moved ẑ, so H entries that flow
+        # only through ẑ are exactly zero
+        stale = np.all(g[:, :, 0, :] == g[:, :, 1, :], axis=0)
+        if stale.any() and g.shape[0] > 0:
+            cols = sorted({int(j) for j, _ in np.argwhere(stale)})
+            warnings.warn(
+                "get_H (FD mode): the ±ε stencil gradients are bitwise "
+                f"identical for θ_sim column(s) {cols} on "
+                f"{int(stale.sum())} (column, row) pairs — the perturbed "
+                "MAP re-solves did not move ẑ, so H entries that flow "
+                "only through ẑ are exactly zero and σθ will be wrong. "
+                "Tighten grad_z_atol (e.g. 1e-4).")
+        # H_sim[i,j] = d g_i / d θsim_j (columns = perturbed θ component)
+        Hs = np.einsum("njsi,s->nji", g, weights) / step[None, :, None]
+        Hs = np.swapaxes(Hs, 1, 2)       # → (n, nθ rows, nθ cols)
+        bad = failed | ~np.isfinite(Hs).all(axis=(1, 2))
+        if bad.any() and not skip_errors:
+            raise RuntimeError(
+                f"get_H: {int(bad.sum())}/{bad.size} FD sims failed; "
+                "pass skip_errors=True to drop them.")
+        return Hs[~bad], int(bad.sum())
+
+    th_dev = comp.theta(th)
+    n_dropped = 0
+    pbar = ProgressReporter(nsims_remaining * (1 + ntheta * len(offsets)),
+                            "get_H", enabled=progress)
+    try:
+        for chunk in _seed_chunks(seeds, max_batch):
+            c = len(chunk)
+            # fiducial fits: warm starts for every FD evaluation
+            # (src/muse.jl:417-423; each sim uses its own seed)
+            Zfid = comp.h_fiducial(chunk, th_dev, grad_z_atol)["Z"]
+            pbar.step(inc=c, msg="fiducial fits")
+            out = comp.h_fd(chunk, th_dev, step, Zfid, grad_z_atol, offsets)
+            g_c = out["g"].detach().cpu().numpy().astype(np.float64)
+            failed_c = out["failed"].cpu().numpy().any(axis=(1, 2))
+            Hs_c, dropped = to_Hs(g_c, failed_c)
+            n_dropped += dropped
+            result.Hs.extend(list(Hs_c))
+            if checkpoint_file is not None:
+                result.save(checkpoint_file)
+            pbar.step(inc=c * ntheta * len(offsets), msg="FD columns")
+    finally:
+        pbar.close()
+    if n_dropped:
+        warnings.warn(f"get_H: dropping {n_dropped} failed sims")
+
+    _reduce_H(result, comp)
+    return result
+
+
+def _reduce_H(result: MuseResult, comp: CompiledProblem):
+    if result.Hs:
+        result.H = np.mean(np.asarray(result.Hs, np.float64), axis=0)
+    finalize_result(result, comp)

@@ -1,0 +1,349 @@
+"""The MUSE solver — outer quasi-Newton root-finder on the MUSE score.
+
+Counterpart of ``muse_tpu/solver/muse.py`` (``muse``/``muse!``, reference
+``src/muse.jl:61-250``): the per-simulation work of an iteration is one
+batched device call per lane chunk (``CompiledProblem.muse_step``); the
+rest — score assembly, H⁻¹ estimation (sims variance or Broyden replay),
+the damped Newton step, the convergence test — is tiny dense linear
+algebra over θ on the host in float64, as the reference does it.
+
+Left out: ``mesh`` (ROADMAP Queue 1 item 10), ``profile_dir`` (item 13),
+``certify`` and the odd-lane padding (TPU compiler guards), and
+``hoist_sampling`` (item 3).
+"""
+
+from __future__ import annotations
+
+import math
+import time as _time
+import warnings
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..problem import MuseProblem
+from ..result import MuseResult
+from ..theta import ThetaSpec
+from ..utils.keys import dummy_seed, sim_seeds
+from ..utils.progress import ProgressReporter
+from .compiled import CompiledProblem
+
+__all__ = ["muse", "muse_fit"]
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def muse(problem: MuseProblem, theta0, **kwargs) -> MuseResult:
+    """One-shot MUSE estimate (``muse`` wrapper, src/muse.jl:107)."""
+    return muse_fit(MuseResult(), problem, theta0, **kwargs)
+
+
+def resolve_spec(result: MuseResult, theta_start, dtype) -> ThetaSpec:
+    """Rebuild/attach the θ structure spec: prefer the live spec, then the
+    checkpointed user structure, then the given θ₀."""
+    if result._spec is not None:
+        spec = result._spec
+    elif result.theta_struct is not None:
+        spec = ThetaSpec.from_example(result.theta_struct, dtype=dtype)
+    else:
+        spec = ThetaSpec.from_example(theta_start, dtype=dtype)
+    result._spec = spec
+    result.theta_names = spec.names
+    return spec
+
+
+def _as_seed(seed, result) -> int:
+    if seed is not None:
+        return int(seed)
+    return int(result.key) if result.key is not None else 0
+
+
+def muse_fit(
+    result: MuseResult,
+    problem: MuseProblem,
+    theta0=None,
+    *,
+    seed: Optional[int] = None,
+    z0=None,
+    maxsteps: int = 50,
+    theta_rtol: float = 1e-1,
+    grad_z_atol: float = 1e-2,
+    nsims: int = 100,
+    alpha: Union[float, Callable[[int], float]] = 0.7,
+    progress: bool = False,
+    regularize: Optional[Callable] = None,
+    Hinv_like=None,
+    Hinv_update: str = "sims",
+    broyden_memory: float = math.inf,
+    checkpoint_file: Optional[str] = None,
+    get_covariance: bool = False,
+    save_maps=False,
+    max_batch: Optional[int] = None,
+    dtype=torch.float32,
+    compiled: Optional[CompiledProblem] = None,
+) -> MuseResult:
+    """Run/resume the MUSE iteration on ``result`` (``muse!`` analog).
+
+    Arguments follow ``muse_tpu.muse_fit``; ``seed`` (an int, stored in
+    ``result.key``) takes the place of the PRNG key. ``max_batch`` bounds
+    the lanes of one device call; the last chunk may be smaller.
+    """
+    if Hinv_update not in ("sims", "broyden", "diagonal_broyden"):
+        raise ValueError(f"invalid Hinv_update={Hinv_update!r}")
+
+    result.key = seed = _as_seed(seed, result)
+    theta_start = result.theta if result.theta is not None else theta0
+    if theta_start is None:
+        raise ValueError("θ₀ must be given (or present in result)")
+    spec = resolve_spec(result, theta_start, dtype)
+
+    th = _host_flat(spec, theta_start)
+    result.theta_struct = spec.to_user(th)
+
+    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    dev = comp.device
+    th_t = _host(comp.transform(comp.theta(th)))
+    th_unreg, th_t_unreg = th.copy(), th_t.copy()
+
+    alpha_fn = alpha if callable(alpha) else (lambda i, a=alpha: a)
+    save_sims_maps = save_maps is not False
+    if save_maps is True:
+        save_maps = lambda z: z.detach().cpu().numpy()
+    elif save_maps is False:
+        save_maps = lambda z: None
+
+    history = result.history
+
+    # per-lane seeds: lane 0 is the data lane (its sample is replaced by
+    # x_obs inside muse_step), lanes 1.. are the fixed CRN sims
+    B = nsims + 1
+    seeds_all = [dummy_seed(seed)] + sim_seeds(seed, nsims)
+    lane_ids = torch.arange(B, device=dev)
+
+    if z0 is not None:
+        z0_flat = torch.as_tensor(z0, dtype=dtype, device=dev).reshape(-1)
+    else:
+        z0_flat = torch.zeros(comp.nz, dtype=dtype, device=dev)
+
+    # memory-bounded lane chunks, each carrying its global lane ids
+    step_sz = B if max_batch is None else min(max_batch, B)
+    bounds = [(s0, min(s0 + step_sz, B)) for s0 in range(0, B, step_sz)]
+    Z_chunks = [z0_flat.expand(e0 - s0, comp.nz).clone()
+                for s0, e0 in bounds]
+
+    pbar = ProgressReporter(maxsteps - len(history), "MUSE",
+                            enabled=progress)
+    try:
+        for i in range(len(history) + 1, maxsteps + 1):
+            t0 = _time.perf_counter()
+
+            # convergence check (src/muse.jl:163-165)
+            if i > 2 and _theta_converged(history, theta_rtol, i):
+                _warn_midmarch_stop(history, theta_rtol, nsims)
+                break
+
+            th_dev = comp.theta(th)
+            th_t_dev = comp.theta(th_t)
+            g_parts, g_t_parts, conv_parts, fail_parts, it_parts = \
+                [], [], [], [], []
+            zhat_dat = None
+            zhat_sims_parts = []
+            for ci, (s0, e0) in enumerate(bounds):
+                out = comp.muse_step(th_dev, th_t_dev, seeds_all[s0:e0],
+                                     Z_chunks[ci], lane_ids[s0:e0],
+                                     grad_z_atol)
+                Z_chunks[ci] = out["Z"]
+                c = e0 - s0
+                g_parts.append(_host(out["g"]))
+                g_t_parts.append(_host(out["g_t"]))
+                conv_parts.append(out["converged"].cpu().numpy())
+                fail_parts.append(out["failed"].cpu().numpy())
+                it = out.get("iterations", 0)
+                it = it.cpu().numpy() if isinstance(it, torch.Tensor) \
+                    else np.asarray(it)
+                it_parts.append(it if it.ndim else np.full(c, int(it)))
+                if ci == 0:
+                    zhat_dat = out["Z"][0]
+                if save_sims_maps:
+                    zhat_sims_parts.append(out["Z"][1 if ci == 0 else 0:])
+            g = np.concatenate(g_parts)                 # (nsims+1, nθ)
+            g_t = np.concatenate(g_t_parts)
+            out = {"converged": np.concatenate(conv_parts),
+                   "failed": np.concatenate(fail_parts),
+                   "iterations": np.concatenate(it_parts)}
+            g_dat, g_sims = g[0], g[1:]
+            g_dat_t, g_sims_t = g_t[0], g_t[1:]
+
+            # the MUSE score (src/muse.jl:183-185)
+            g_like_t = g_dat_t - g_sims_t.mean(axis=0)
+            g_prior_t = _host(comp.prior_grad_t(th_t_dev))
+            g_post_t = g_like_t + g_prior_t
+
+            # H⁻¹ via sims variance / Broyden replay (src/muse.jl:188-205)
+            var_sims = g_sims_t.var(axis=0, ddof=1)
+            if (var_sims <= 0).any() or not np.isfinite(var_sims).all():
+                bad = [result.theta_names[k] if k < len(result.theta_names)
+                       else str(k)
+                       for k in np.where(~(var_sims > 0))[0]]
+                raise RuntimeError(
+                    f"MUSE iteration {i}: zero/non-finite score variance "
+                    f"for θ component(s) {bad}. A hyper-parameter whose "
+                    "score has no simulation scatter does not affect the "
+                    "observed data and cannot be estimated by MUSE — check "
+                    "the model structure.")
+            Hinv_like_sims = np.diag(-1.0 / var_sims)
+            if Hinv_like is None or Hinv_update == "sims":
+                Hinv_like = Hinv_like_sims
+            elif i > 2:
+                j0 = int(max(2, i - broyden_memory))
+                Hinv_like = history[j0 - 2]["Hinv_like_sims_t"]
+                for j in range(j0, i):
+                    hj, hjm1 = history[j - 1], history[j - 2]
+                    dth = hj["theta_t"] - hjm1["theta_t"]
+                    dg = hj["g_like_t"] - hjm1["g_like_t"]
+                    Hdg = Hinv_like @ dg
+                    denom = dth @ Hdg
+                    Hinv_like = Hinv_like + np.outer(
+                        (dth - Hdg) / denom, dth @ Hinv_like)
+                    if Hinv_update == "diagonal_broyden":
+                        Hinv_like = np.diag(np.diag(Hinv_like))
+
+            H_prior_t = np.atleast_2d(_host(comp.prior_hess_t(th_t_dev)))
+            Hinv_post = np.linalg.inv(
+                np.linalg.inv(Hinv_like) + H_prior_t)
+
+            t = _time.perf_counter() - t0
+            history.append({
+                "theta": th.copy(), "theta_unreg": th_unreg.copy(),
+                "theta_t": th_t.copy(), "theta_t_unreg": th_t_unreg.copy(),
+                "g_like_sims": g_sims, "g_like_dat_t": g_dat_t,
+                "g_like_sims_t": g_sims_t, "g_like_t": g_like_t,
+                "g_prior_t": g_prior_t, "g_post_t": g_post_t,
+                "Hinv_post_t": Hinv_post, "H_prior_t": H_prior_t,
+                "Hinv_like_t": Hinv_like,
+                "Hinv_like_sims_t": Hinv_like_sims,
+                "map_converged": out["converged"],
+                "map_failed": out["failed"],
+                "map_iterations": out["iterations"],
+                "t": t,
+                "zhat_dat": save_maps(zhat_dat),
+                "zhat_sims": (save_maps(torch.cat(zhat_sims_parts))
+                              if save_sims_maps else None),
+            })
+            _warn_maps(out, i)
+
+            # damped Newton step (src/muse.jl:223-227)
+            a = alpha_fn(i)
+            th_t_unreg = th_t - a * (Hinv_post @ g_post_t)
+            th_unreg = _host(comp.inv_transform(comp.theta(th_t_unreg)))
+            th_t = (np.asarray(regularize(th_t_unreg), np.float64)
+                    if regularize is not None else th_t_unreg)
+            th = _host(comp.inv_transform(comp.theta(th_t)))
+
+            # running updates for early stop (src/muse.jl:230-232)
+            result.theta = th_unreg
+            result.gs = [gi for gi in g_sims]
+            # per-sim reliability of the stored scores, for get_J's reuse
+            result.metadata["gs_converged"] = (
+                out["converged"][1:] & ~out["failed"][1:]).copy()
+            result.time += t
+
+            pbar.step(f"θ={_fmt(th_unreg)}  "
+                      f"|g_post|={np.max(np.abs(g_post_t)):.3g}")
+
+            if checkpoint_file is not None:
+                result.save(checkpoint_file)
+    finally:
+        pbar.close()
+
+    if get_covariance:
+        from .jacobians import get_H, get_J
+        get_J(result, problem, seed=seed, nsims=nsims,
+              grad_z_atol=grad_z_atol, dtype=dtype, compiled=comp,
+              progress=progress, warn_reuse=False, max_batch=max_batch)
+        get_H(result, problem, seed=seed, nsims=max(1, nsims // 10),
+              grad_z_atol=grad_z_atol, dtype=dtype, compiled=comp,
+              progress=progress, max_batch=max_batch)
+    return result
+
+
+def _host_flat(spec: ThetaSpec, theta) -> np.ndarray:
+    flat = spec.flatten(theta)
+    if isinstance(flat, torch.Tensor):
+        return _host(flat)
+    return np.asarray(flat, np.float64)
+
+
+def _theta_converged(history, theta_rtol: float, i: int) -> bool:
+    """The θ_rtol convergence test (src/muse.jl:163-165), doubly guarded
+    as in ``muse_tpu``: a metric of the wrong sign (Broyden drift) falls
+    back to its magnitude, and the last TWO steps must both pass, because
+    one small damped step far from the root can pass the σ-scaled test."""
+
+    def step_metric(h_prev, h_curr):
+        dth_t = h_curr["theta_t"] - h_prev["theta_t"]
+        metric = float(-dth_t @ h_curr["Hinv_post_t"] @ dth_t)
+        if metric <= 0.0 and float(dth_t @ dth_t) > 0.0:
+            warnings.warn(
+                f"MUSE iteration {i}: H⁻¹_post is not negative definite "
+                f"along the last step (Δθᵀ H⁻¹ Δθ = {-metric:.3g} ≥ 0) — "
+                "likely Broyden-replay drift. Using |Δθᵀ H⁻¹ Δθ| for the "
+                "θ_rtol test instead of silently declaring convergence; "
+                'consider Hinv_update="sims" or a smaller broyden_memory.')
+            metric = abs(metric)
+        return math.sqrt(metric)
+
+    if step_metric(history[-2], history[-1]) >= theta_rtol:
+        return False
+    if len(history) < 3:
+        return False       # one qualifying step is not convergence yet
+    return step_metric(history[-3], history[-2]) < theta_rtol
+
+
+def _warn_midmarch_stop(history, theta_rtol: float, nsims: int) -> None:
+    """Warn when the θ_rtol stop fires while the posterior score is still
+    above its Monte-Carlo noise floor and not below its running maximum
+    (the σ-scaled step test can freeze a damped march far from the root)."""
+    g_norms = [float(np.max(np.abs(h["g_post_t"]))) for h in history
+               if "g_post_t" in h]
+    if len(g_norms) < 3:
+        return
+    g_last, g_max = g_norms[-1], max(g_norms)
+    h = history[-1]
+    sd = np.std(np.asarray(h["g_like_sims_t"], np.float64), axis=0, ddof=1)
+    floor = sd / math.sqrt(max(nsims, 2))
+    z = np.abs(np.asarray(h["g_post_t"], np.float64)) / np.maximum(
+        floor, 1e-300)
+    if g_last > 0.5 * g_max and float(np.max(z)) > 3.0:
+        warnings.warn(
+            f"MUSE stopped by theta_rtol={theta_rtol:g} while the "
+            f"posterior score is still {float(np.max(z)):.1f}× its "
+            "Monte-Carlo noise floor and has not decreased from its "
+            f"running maximum (max|g_post| {g_last:.3g} vs peak "
+            f"{g_max:.3g}). The fit is likely NOT converged: rerun with a "
+            "smaller theta_rtol or more maxsteps.")
+
+
+def _warn_maps(out, i):
+    failed = np.asarray(out["failed"])
+    if failed.any():
+        warnings.warn(
+            f"MUSE iteration {i}: {int(failed.sum())}/{failed.size} latent "
+            "MAP solves failed; result may be affected — consider adjusting "
+            "θ₀ or grad_z_atol.")
+    conv = np.asarray(out["converged"])
+    if not conv.all() and not failed.any():
+        warnings.warn(
+            f"MUSE iteration {i}: {int((~conv).sum())}/{conv.size} MAP "
+            "solves did not converge within tolerance; result could be "
+            "erroneous (same caveat as reference src/interface.jl:168-171).")
+
+
+def _fmt(th):
+    th = np.atleast_1d(th)
+    if th.size <= 4:
+        return "[" + ", ".join(f"{v:.4g}" for v in th) + "]"
+    return f"[{th[0]:.4g}, …×{th.size}]"

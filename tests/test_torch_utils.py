@@ -1,0 +1,136 @@
+"""The port's foundations: seeds, θ specs, results, distributions, device
+rules, the no-JAX import rule, and the paths not ported yet."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from scipy import stats
+
+from muse_tpu.theta import ThetaSpec as JSpec
+import muse_tpu_torch
+from muse_tpu_torch import MuseResult, SimpleMuseProblem, ThetaSpec
+from muse_tpu_torch.distributions import MvNormal, Normal
+from muse_tpu_torch.models import grf_field_problem
+from muse_tpu_torch.utils import (dummy_seed, lane_generator, resolve_device,
+                                  sim_seeds)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_sim_seeds_fixed_and_prefix():
+    a = sim_seeds(7, 10)
+    assert a == sim_seeds(7, 10)                  # CRN: same seed, same sims
+    assert sim_seeds(7, 25)[:10] == a             # superset prefix
+    assert len(set(a)) == 10
+    assert set(a).isdisjoint(sim_seeds(8, 10))
+    assert set(a).isdisjoint(sim_seeds(7, 10, salt=1))
+    assert dummy_seed(7) not in sim_seeds(7, 100)
+    assert all(0 <= s < 2 ** 63 for s in a)
+    with pytest.raises(ValueError):
+        sim_seeds(-1, 3)
+
+
+def test_lane_generator_reproduces_draws():
+    a = torch.randn(5, generator=lane_generator(sim_seeds(3, 2)[1], "cpu"))
+    b = torch.randn(5, generator=lane_generator(sim_seeds(3, 2)[1], "cpu"))
+    assert torch.equal(a, b)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, muse_tpu_torch, muse_tpu_torch.models, "
+            "muse_tpu_torch.convert, muse_tpu_torch.ops.kernels; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_tf32_is_off_after_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("theta", [
+    0.5, np.array([0.1, -0.2]), {"b": 1.0, "a": np.array([2.0, 3.0])}])
+def test_theta_spec_round_trips_like_jax(theta):
+    spec = ThetaSpec.from_example(theta)
+    jspec = JSpec.from_example(theta)
+    assert spec.names == jspec.names and spec.n == jspec.n
+    assert spec.scalar == bool(jspec.scalar)
+    flat = spec.flatten(theta)
+    np.testing.assert_allclose(flat, np.asarray(jspec.flatten(theta)),
+                               rtol=1e-7)
+    user = spec.to_user(flat)
+    if isinstance(theta, dict):
+        for k in theta:
+            np.testing.assert_allclose(user[k], theta[k])
+    else:
+        np.testing.assert_allclose(user, theta)
+    # tensors: differentiable unflatten
+    t = torch.as_tensor(flat, dtype=torch.float32).requires_grad_(True)
+    tree = spec.unflatten(t)
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    sum((v ** 2).sum() for v in leaves).backward()
+    torch.testing.assert_close(t.grad, 2 * t.detach())
+    torch.testing.assert_close(spec.flatten(tree), t.detach())
+
+
+def test_result_save_load_round_trip(tmp_path):
+    res = MuseResult(theta=np.array([0.3]), H=np.array([[2.0]]),
+                     J=np.array([[3.0]]), Sigma=np.array([[0.25]]),
+                     gs=[np.array([1.0]), np.array([2.0])],
+                     history=[{"theta": np.array([0.3]),
+                               "zhat_dat": torch.ones(3)}],
+                     key=5)
+    f = str(tmp_path / "r.pkl")
+    res.save(f)
+    back = muse_tpu_torch.load_result(f)
+    np.testing.assert_array_equal(back.theta, res.theta)
+    assert back.key == 5 and len(back.gs) == 2
+    np.testing.assert_array_equal(back.history[0]["zhat_dat"], np.ones(3))
+    assert back.dist == Normal(0.3, 0.5)
+    assert "0.3" in repr(back)
+
+
+def test_distributions_match_scipy():
+    n = Normal(0.3, 2.0)
+    np.testing.assert_allclose(n.log_prob(np.array([0.0, 1.5])).numpy(),
+                               stats.norm(0.3, 2.0).logpdf([0.0, 1.5]))
+    cov = np.array([[2.0, 0.6], [0.6, 1.0]])
+    mv = MvNormal(np.array([0.1, -0.2]), cov)
+    x = np.array([[0.0, 0.0], [1.0, -1.0]])
+    np.testing.assert_allclose(
+        mv.log_prob(x).numpy(),
+        stats.multivariate_normal([0.1, -0.2], cov).logpdf(x))
+    draws = mv.sample(lane_generator(0, "cpu"), (20000,)).numpy()
+    np.testing.assert_allclose(np.cov(draws.T), cov, atol=0.06)
+    assert n.sample(lane_generator(0, "cpu"), (4,)).shape == (4,)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        grf_field_problem(n=8, device="cuda")
+
+
+def test_paths_not_ported_yet_raise():
+    p = grf_field_problem(n=8)
+    res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        muse_tpu_torch.get_H(res, p, nsims=2, implicit_diff=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
+    q = SimpleMuseProblem(p.x, p.sample_x_z, p.log_like)    # no custom_zhat
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        muse_tpu_torch.muse(q, 0.5, nsims=4, maxsteps=2)
