@@ -5,28 +5,58 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``muse_tpu_torch/csrc/``, holds
-each against its plain PyTorch version, runs the port's main path — a full
-MUSE fit with covariance, ``muse(grf_field_problem(n=1024,
-sigma_noise=0.01), 0.5, nsims=100, theta_rtol=1e-5, get_covariance=True)``
-— and checks the estimate against the exact marginal MLE. The noise level
-and θ_rtol are the repo's 1024² north-star settings
-(examples/northstar_grf.py). At the default σ = 1 the field is so faint
-that the marginal MLE of a draw may run to θ → −∞, and then there is
-nothing to check against. The θ_rtol test measures |Δθ|·σ_F, so with
-σ_F ≈ 0.008 it needs 1e-5 to stop within ~0.2σ_F of the root. Phases:
+each against its plain PyTorch version, and runs the port's two main paths
+at full width, each checked against the exact marginal MLE:
+
+  * slice 1, the field GRF: ``muse(grf_field_problem(n=1024,
+    sigma_noise=0.01), 0.5, nsims=100, theta_rtol=1e-5,
+    get_covariance=True)``;
+  * slice 2, the north-star pipeline (examples/northstar_grf.py):
+    ``grf_spectral_problem(n=1024, sigma_noise=0.01, solver="cg")``, a
+    white-hoisted ``muse_fit`` of 512 sims in chunks of 128, ``get_J``
+    reusing the fit's scores, and implicit-diff ``get_H`` of 51 sims.
+
+The noise level and θ_rtol are the repo's 1024² north-star settings. At
+the default σ = 1 the field is so faint that the marginal MLE of a draw
+may run to θ → −∞, and then there is nothing to check against. The θ_rtol
+test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
+~0.2σ_F of the root. Phases:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. the kernel build and its seconds;
-  3. kernel vs plain at B ∈ {1, 17, 101} × n=1024, and at n=100 and n=33
-     (ragged tails, misaligned lanes): max relative error ≤ 1e-5, a
-     bitwise-equal rerun, and the autograd gradients against the plain
-     version's (rtol 1e-5, atol 1e-5 relative to the largest entry);
-  4. the fit at full width: |θ̂ − MLE| < 3σ_F/√100 + 0.02,
-     0.5 < σ/σ_F < 2, and every batched log-likelihood evaluation of the
-     fit went through the kernel (launch count = evaluation count > 0);
-  5. times: kernel and plain at B=101 × 1024² (CUDA events, median of
-     20 samples of 20 launches each), seconds per ``muse_step``, and the
-     whole fit + J + H.
+  3. spectrum_quadform vs plain at B ∈ {1, 17, 101} × n=1024, and at n=100
+     and n=33 (ragged tails, misaligned lanes): max relative error ≤ 1e-5,
+     a bitwise-equal rerun, and the autograd gradients against the plain
+     version's (rtol 1e-5, atol 1e-5 relative to the largest entry); then
+     at every lane count that the slice 2 fit gives it (its chunks of 128
+     lanes and the one-lane remainder of 513) on slice 2's own θ-score
+     inputs: x̃ drawn by the problem's sampler and the weight C/(C+σ²)² at
+     the fit's first θ and at the MLE it ends near, held against the plain
+     version in float64 (max relative error ≤ 1e-5) with a bitwise rerun;
+  4. the slice 1 fit: |θ̂ − MLE| < 3σ_F/√100 + 0.02, 0.5 < σ/σ_F < 2, and
+     every batched log-likelihood evaluation of the fit went through the
+     kernel (launch count = evaluation count > 0);
+  5. times: the quadform kernel and plain at B=101 × 1024² (CUDA events,
+     median of 20 samples of 20 launches each), seconds per
+     ``muse_step``, and the whole slice 1 fit + J + H;
+  6. spectrum_quadform_and_grad vs plain at B ∈ {1, 17, 51, 128} ×
+     n=1024 (51 is get_H's fiducial MAP solve, 128 and 1 the fit's chunks)
+     and at (3, 100) and (5, 33): quad max relative error ≤ 1e-5 against the
+     plain version in float64 (the float32 plain's own rounding reaches
+     1.5e-5 at B=128), half_grad equal to the plain ``z*w``
+     (``torch.equal``), a bitwise-equal rerun;
+  7. the slice 2 pipeline, run twice in one process (cold, then warm):
+     |θ̂ − MLE| < max(1e-3, 2σ_F/√512) and 0.9 < σ/σ_F < 1.1
+     (northstar_grf.py:116, 124-125); the fit went through
+     ``muse_step_white`` and never ``muse_step``; quadform launches =
+     batched θ-score evaluations = ``muse_step_white`` calls; fused-kernel
+     launches = the CG steps that ``batched_cg`` counted, > 0;
+  8. times beside the card's name and power limit: the fused kernel, its
+     plain version and its bound at B=128 × 1024²; the quadform's one-call
+     library route ``torch.einsum("bnm,bnm,nm->b", z, z, w)`` at B=101;
+     the median warm ``muse_step_white`` at 128 lanes and a torch.profiler
+     breakdown of it (device-busy share, top kernels); the cold and warm
+     fit, J and H walls; the peak device memory.
 
 No phase's failure is caught: any failure exits non-zero. The line before
 last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": …}``.
@@ -66,6 +96,63 @@ def cuda_ms(fn, samples=20, per_sample=20):
     return statistics.median(times)
 
 
+# the slice 2 pipeline's settings (examples/northstar_grf.py:72-108)
+NSIMS2, MAX_BATCH2, H_NSIMS2 = 512, 128, 51
+# the lane counts of its fit's chunks: nsims + 1 lanes (the data lane) in
+# chunks of MAX_BATCH2, the last one smaller
+FIT_CHUNKS2 = sorted({min(MAX_BATCH2, NSIMS2 + 1 - s0)
+                      for s0 in range(0, NSIMS2 + 1, MAX_BATCH2)})
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+
+
+def least_ms(nbytes, nops):
+    """(least ms for the work on an H100 at its published peaks, what bounds
+    it): bytes over the memory rate vs float32 operations over the peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_steps(step, card, nsteps=3, top=10):
+    """Where the time of a warm step goes: torch.profiler over ``nsteps``
+    synchronised steps; prints the device-busy share of the host span and
+    the kernels that take the most device time. Prints "not measured" when
+    the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(nsteps):
+            step()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        phase(f"phase 8 [{card}] profile: no device time recorded (not "
+              "measured)")
+        return
+    phase(f"phase 8 [{card}] profile of {nsteps} warm steps: device busy "
+          f"{busy_ms:.2f} ms of a {span_ms:.2f} ms host span "
+          f"({busy_ms / span_ms:.1%}); top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        phase(f"  {e.self_device_time_total / 1e3 / nsteps:8.3f} ms/step "
+              f"{e.count / nsteps:5.1f} launches/step  {e.key[:110]}")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    phase(f"phase 8 [{card}] the same by the operator that launched it:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        phase(f"  {e.self_device_time_total / 1e3 / nsteps:8.3f} ms/step "
+              f"{e.count / nsteps:5.1f} calls/step  {e.key[:60]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -76,8 +163,10 @@ def main():
     import numpy as np
 
     import muse_tpu_torch
-    from muse_tpu_torch.models import grf_field_problem, grf_marginal_mle
+    from muse_tpu_torch.models import (grf_field_problem, grf_marginal_mle,
+                                       grf_spectral_problem)
     from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
     from muse_tpu_torch.ops.kernels import build_library
     from muse_tpu_torch.solver import CompiledProblem
     from muse_tpu_torch.theta import ThetaSpec
@@ -110,7 +199,6 @@ def main():
         w = gs.pack_weights(cfg.herm_weight / cfg.spectrum(0.5))
         return z.contiguous(), w.contiguous()
 
-    abs_err_101 = None
     for B, n in ((1, 1024), (17, 1024), (101, 1024), (3, 100), (5, 33)):
         z, w = inputs(B, n, seed=B + n)
         got = gs.spectrum_quadform_cuda(z, w)
@@ -123,8 +211,6 @@ def main():
               f"{abs_err:.3e}, rerun bitwise equal: {bitwise}")
         if not (rel <= 1e-5 and bitwise and torch.isfinite(got).all()):
             raise AssertionError(f"kernel disagrees at B={B}, n={n}")
-        if B == 101:
-            abs_err_101 = abs_err
         del z, w, got, again, want
 
     z, w = inputs(17, 1024, seed=7)
@@ -141,6 +227,35 @@ def main():
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * b.abs().max().item())
     del z, w, grads, zz, ww
+
+    # slice 2's θ-score inputs at the lane counts of its fit
+    prob2 = grf_spectral_problem(n=1024, sigma_noise=0.01, solver="cg",
+                                 data_seed=42, device=dev)
+    mle2, sig_F2 = grf_marginal_mle(prob2.x_real, prob2.grf_config)
+    cfg2 = prob2.grf_config
+    grid2 = (cfg2.n, 2 * (cfg2.n // 2 + 1))
+    abs_err_path = 0.0
+    for B in FIT_CHUNKS2:
+        g = torch.Generator(device=dev).manual_seed(B)
+        w1 = torch.stack([prob2.sample_white(g)[0] for _ in range(B)])
+        for th in (0.5, mle2):
+            C2 = cfg2.spectrum(th).reshape(-1).repeat(2)
+            z = prob2.x_of_white((w1, None), th)[0].reshape((B,) + grid2)
+            w = (C2 / (C2 + cfg2.sigma_noise ** 2) ** 2).reshape(grid2)
+            got = gs.spectrum_quadform_cuda(z, w)
+            again = gs.spectrum_quadform_cuda(z, w)
+            want = gs.spectrum_quadform_plain(z.double(), w.double())
+            rel = ((got.double() - want).abs() / want.abs()).max().item()
+            abs_err = (got.double() - want).abs().max().item()
+            bitwise = bool(torch.equal(got, again))
+            phase(f"phase 3 slice 2 θ-score B={B} n=1024 θ={th:.6f}: max "
+                  f"rel err {rel:.3e} (vs float64), max abs err "
+                  f"{abs_err:.3e}, rerun bitwise equal: {bitwise}")
+            if not (rel <= 1e-5 and bitwise and torch.isfinite(got).all()):
+                raise AssertionError(f"kernel disagrees on slice 2's inputs "
+                                     f"at B={B}, θ={th}")
+            abs_err_path = max(abs_err_path, abs_err)
+        del w1, z, w, got, again, want
 
     # 4. the main path at full width
     prob = grf_field_problem(n=1024, sigma_noise=0.01, device=dev)
@@ -207,12 +322,191 @@ def main():
           f"{[round(h['t'], 4) for h in res.history]} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    launches_slice1 = launches
+    del comp, Z
+
+    # 6. the fused kernel vs plain, on the PCG operator of the packed GRF:
+    # random packed vectors p and the weight A = 1 + C/σ² at θ = 0.5
+    def pcg_inputs(B, n, seed):
+        cfg = muse_tpu_torch.models.GrfConfig(n, sigma_noise=0.01,
+                                              device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        grid = (n, 2 * (n // 2 + 1))
+        A = 1.0 + cfg.spectrum(0.5).reshape(-1).repeat(2) / 0.01 ** 2
+        p = torch.randn((B,) + grid, generator=g, device=dev)
+        return p, A.reshape(grid).contiguous()
+
+    abs_err_fused = 0.0
+    shapes = [(B, 1024) for B in sorted({1, 17, H_NSIMS2, *FIT_CHUNKS2})]
+    for B, n in shapes + [(3, 100), (5, 33)]:
+        p, A = pcg_inputs(B, n, seed=B + n)
+        q, hg = gs.spectrum_quadform_and_grad_cuda(p, A)
+        q2, hg2 = gs.spectrum_quadform_and_grad_cuda(p, A)
+        qp, hgp = gs.spectrum_quadform_and_grad_plain(p, A)
+        # the quad is held against the plain version in float64: the
+        # float32 plain einsum is a ~1e6-term dot product whose own
+        # rounding reaches ~1e-5 relative here (measured 1.5e-5 at B=128)
+        q64, _ = gs.spectrum_quadform_and_grad_plain(p.double(), A.double())
+        rel = ((q.double() - q64).abs() / q64.abs()).max().item()
+        rel32 = ((qp.double() - q64).abs() / q64.abs()).max().item()
+        abs_err = (q.double() - q64).abs().max().item()
+        exact = bool(torch.equal(hg, hgp))
+        bitwise = bool(torch.equal(q, q2) and torch.equal(hg, hg2))
+        phase(f"phase 6 B={B} n={n}: quad max rel err {rel:.3e} (the "
+              f"float32 plain's own {rel32:.3e}), max abs err "
+              f"{abs_err:.3e}; half_grad == z*w: {exact}; rerun bitwise "
+              f"equal: {bitwise}")
+        if not (rel <= 1e-5 and exact and bitwise
+                and torch.isfinite(q).all()):
+            raise AssertionError(f"fused kernel disagrees at B={B}, n={n}")
+        if n == 1024:
+            abs_err_fused = max(abs_err_fused, abs_err)
+        del p, A, q, hg, q2, hg2, qp, hgp, q64
+
+    # 7. the slice 2 main path at full width, twice in one process
+    comp2 = CompiledProblem(prob2, ThetaSpec.from_example(0.5),
+                            np.array([0.5]))
+    white_calls = [0]
+    step_white = comp2.muse_step_white
+
+    def counted_step_white(*args, **kwargs):
+        white_calls[0] += 1
+        return step_white(*args, **kwargs)
+
+    def keyed_step(*args, **kwargs):
+        raise AssertionError("the slice 2 fit called muse_step, not "
+                             "muse_step_white")
+
+    comp2.muse_step_white = counted_step_white
+    comp2.muse_step = keyed_step
+    target = max(1e-3, 2.0 * sig_F2 / np.sqrt(NSIMS2))
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        gs.reset_counts()
+        batched_cg.curvature_steps = 0
+        white_calls[0] = 0
+        t0 = time.perf_counter()
+        res2 = muse_tpu_torch.MuseResult()
+        muse_tpu_torch.muse_fit(res2, prob2, 0.5, nsims=NSIMS2,
+                                max_batch=MAX_BATCH2,
+                                theta_rtol=1e-5, alpha=1.0,
+                                Hinv_update="sims", compiled=comp2, seed=1)
+        torch.cuda.synchronize()
+        t_fit2 = time.perf_counter() - t0
+        muse_tpu_torch.get_J(res2, prob2, nsims=NSIMS2, max_batch=MAX_BATCH2,
+                             compiled=comp2, warn_reuse=False)
+        torch.cuda.synchronize()
+        t_j2 = time.perf_counter() - t0 - t_fit2
+        muse_tpu_torch.get_H(res2, prob2, nsims=H_NSIMS2, implicit_diff=True,
+                             implicit_diff_precond=prob2.suggested_h_precond,
+                             max_batch=MAX_BATCH2, compiled=comp2)
+        torch.cuda.synchronize()
+        t_h2 = time.perf_counter() - t0 - t_fit2 - t_j2
+        counts = {"quad_launches": gs.spectrum_quadform_cuda.launches,
+                  "quad_evaluations": gs.SpectrumQuadform.evaluations,
+                  "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
+                  "cg_steps": batched_cg.curvature_steps,
+                  "muse_step_white_calls": white_calls[0]}
+        th2, sig2 = float(res2.theta[0]), float(res2.sigma[0])
+        runs.append({"run": run, "fit_s": t_fit2, "J_s": t_j2, "H_s": t_h2,
+                     "steps": len(res2.history), **counts})
+        phase(f"phase 7 {run} [{card}] fit: {res2}  steps "
+              f"{len(res2.history)}; MLE {mle2:.6f} σ_F {sig_F2:.6f}; "
+              f"|θ̂−MLE| {abs(th2 - mle2):.6f} (< {target:.6f}); σ/σ_F "
+              f"{sig2 / sig_F2:.4f}; J {float(res2.J[0, 0]):.1f} H "
+              f"{float(res2.H[0, 0]):.1f}; max CG resid "
+              f"{max(float(np.max(r)) for r in res2.metadata['implicit_diff_cg_resid']):.3e}")
+        phase(f"phase 7 {run} counts: {counts}; walls fit {t_fit2:.3f} s, "
+              f"J {t_j2:.4f} s, H {t_h2:.3f} s; fit iterations "
+              f"{[round(h['t'], 4) for h in res2.history]} s")
+        if not (np.isfinite(th2) and np.isfinite(sig2)):
+            raise AssertionError("non-finite θ̂ or σ")
+        if not abs(th2 - mle2) < target:
+            raise AssertionError(f"θ̂ {th2} vs MLE {mle2}: off by more than "
+                                 f"{target}")
+        if not 0.9 < sig2 / sig_F2 < 1.1:
+            raise AssertionError(f"σ {sig2} vs σ_F {sig_F2}: ratio "
+                                 f"{sig2 / sig_F2}")
+        if not (counts["muse_step_white_calls"] > 0 and
+                counts["quad_launches"] == counts["quad_evaluations"]
+                == counts["muse_step_white_calls"]):
+            raise AssertionError(f"quadform launches do not match the "
+                                 f"θ-score evaluations: {counts}")
+        if not (counts["fused_launches"] > 0 and
+                counts["fused_launches"] == counts["cg_steps"]):
+            raise AssertionError(f"fused launches do not match the CG "
+                                 f"steps: {counts}")
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches_slice2 = runs[0]["quad_launches"]
+    fused_launches = runs[0]["fused_launches"]
+    phase(f"phase 7 [{card}] peak device memory {peak2:.2f} GiB")
+
+    # 8. times
+    z, w = inputs(101, 1024, seed=5)
+    lib_ms = [cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w))]
+    lib_ms.append(cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w)))
+    library_ms = statistics.median(lib_ms)
+    L = z.shape[1] * z.shape[2]
+    quad_bound, quad_by = least_ms((101 * L + L + 101) * 4, 3 * 101 * L)
+    del z, w
+    phase(f"phase 8 [{card}] spectrum_quadform B=101 n=1024: library "
+          f"einsum {library_ms:.4f} ms (runs {lib_ms}); bound "
+          f"{quad_bound:.4f} ms ({quad_by})")
+
+    p, A = pcg_inputs(128, 1024, seed=9)
+    f_plain = [cuda_ms(lambda: gs.spectrum_quadform_and_grad_plain(p, A))]
+    f_kernel = [cuda_ms(lambda: gs.spectrum_quadform_and_grad_cuda(p, A))
+                for _ in range(2)]
+    f_plain.append(cuda_ms(lambda: gs.spectrum_quadform_and_grad_plain(p, A)))
+    f_ms, f_plain_ms = statistics.median(f_kernel), statistics.median(f_plain)
+    L = p.shape[1] * p.shape[2]
+    f_bytes = (2 * 128 * L + L + 128) * 4
+    fused_bound, fused_by = least_ms(f_bytes, 3 * 128 * L)
+    del p, A
+    phase(f"phase 8 [{card}] spectrum_quadform_and_grad B=128 n=1024: "
+          f"kernel {f_ms:.4f} ms ({f_bytes / (f_ms * 1e-3) / 1e9:.0f} GB/s),"
+          f" plain {f_plain_ms:.4f} ms, bound {fused_bound:.4f} ms "
+          f"({fused_by}; {fused_bound / f_ms:.0%} of it) (runs {f_kernel}, "
+          f"{f_plain})")
+
+    seeds = list(range(128))
+    W = comp2.sample_whites(seeds, x_only=True)
+    lanes = torch.arange(1, 129, device=dev)
+    Z = torch.zeros((128, comp2.nz), device=dev)
+    thd = comp2.theta(np.array([mle2]))
+    step_s = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_white(thd, thd, W, Z, lanes, 1e-2)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    phase(f"phase 8 [{card}] muse_step_white (128 lanes × 1024²): median "
+          f"{statistics.median(step_s[1:]):.4f} s (runs {step_s})")
+    profile_steps(lambda: step_white(thd, thd, W, Z, lanes, 1e-2), card)
+    del W, Z
+    phase(f"phase 8 [{card}] slice 2 walls: cold fit {runs[0]['fit_s']:.3f} "
+          f"J {runs[0]['J_s']:.4f} H {runs[0]['H_s']:.3f} s; warm fit "
+          f"{runs[1]['fit_s']:.3f} J {runs[1]['J_s']:.4f} H "
+          f"{runs[1]['H_s']:.3f} s; peak device memory {peak2:.2f} GiB")
+
     print(json.dumps({"kernels": [{
         "name": "spectrum_quadform", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:137",
-        "launches": launches, "max_abs_err": abs_err_101,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches_slice2, "max_abs_err": abs_err_path,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
+        "bound_by": quad_by, "library_ms": library_ms,
+        "launches_by_path": {"slice1_field_grf": launches_slice1,
+                             "slice2_northstar": launches_slice2}}, {
+        "name": "spectrum_quadform_and_grad", "route": "cuda",
+        "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
+        "replaces": "muse_tpu/ops/pallas_grf.py:73",
+        "launches": fused_launches, "max_abs_err": abs_err_fused,
+        "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
+        "bound_by": fused_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

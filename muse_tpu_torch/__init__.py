@@ -5,11 +5,17 @@ names mirror ``muse_tpu``'s. Plain tensor work is PyTorch on an explicit
 device; each Pallas kernel of ``muse_tpu`` on a ported path becomes a
 hand-written CUDA kernel (``csrc/``, built with ``nvcc`` at first use).
 The θ loop runs on the host in float64; the device works in float32.
+Entry points run on the card (``"cuda"``) unless the caller asks for the
+CPU with ``device="cpu"``.
 
-Ported so far (slice 1): the full MUSE pipeline — ``muse_fit``, ``get_J``,
-finite-difference ``get_H``, ``finalize_result`` — on the field GRF
-(``models.grf_field_problem``), whose spectrum quadform runs in
-``csrc/spectrum_quadform.cu``.
+Ported so far: the full MUSE pipeline — ``muse_fit`` (keyed, or with the
+CRN whites hoisted), ``get_J``, finite-difference and implicit-diff
+``get_H``, ``finalize_result`` — on the field GRF
+(``models.grf_field_problem``, slice 1) and on the packed spectral GRF of
+the north star (``models.grf_spectral_problem``, slice 2). Both TPU
+kernels of the JAX package have their CUDA counterparts in
+``csrc/spectrum_quadform.cu``: the spectrum quadform (the θ-scores) and the
+fused quadform + half-gradient (the spectral GRF's PCG operator).
 """
 
 import torch as _torch

@@ -21,7 +21,8 @@ Example (the reference docstring's 512-dim noisy funnel)::
 
 The funnel's latent solve needs the generic L-BFGS solver, which is not
 ported yet (ROADMAP Queue 1 item 6); a problem runs today when it brings
-its own batched ``custom_zhat``.
+its own batched ``custom_zhat``. Without ``device`` the problem takes
+``x``'s device when ``x`` is a tensor, and the card otherwise.
 """
 
 from __future__ import annotations
@@ -47,9 +48,15 @@ class SimpleMuseProblem(MuseProblem):
                  zhat_guess_from_truth: Optional[Callable] = None,
                  custom_zhat=None,
                  grad_theta_log_like: Optional[Callable] = None,
-                 device=None):
+                 device=None,
+                 sample_white: Optional[Callable] = None,
+                 x_of_white: Optional[Callable] = None,
+                 x_white_parts=None):
         self.x = x
-        self.device = torch.device(device) if device is not None else x.device
+        if device is None and isinstance(x, torch.Tensor):
+            device = x.device
+        if device is not None:      # else the card, at first use
+            self.device = device
         self._sample_x_z = sample_x_z
         self._log_like = log_like
         self._log_prior = log_prior
@@ -58,6 +65,11 @@ class SimpleMuseProblem(MuseProblem):
         self._zhat_guess = zhat_guess_from_truth
         self.custom_zhat = custom_zhat
         self.grad_theta_log_like = grad_theta_log_like
+        # the CRN white split (problem.py): sample_x_z(g, θ) ≡
+        # x_of_white(sample_white(g), θ)
+        self.sample_white = sample_white
+        self.x_of_white = x_of_white
+        self.x_white_parts = x_white_parts
 
     def sample_x_z(self, generator, theta):
         return self._sample_x_z(generator, theta)

@@ -3,7 +3,8 @@
 Every function takes the JAX side's arrays as numpy (``np.asarray`` of a
 JAX array) or a file ``muse_tpu`` wrote, and builds the port's objects,
 so both packages compute the same thing from the same state. Nothing
-here imports JAX.
+here imports JAX. Tensors land on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -11,16 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.grf import GrfConfig
+from .models.grf import GrfConfig, pack_field_host
 from .result import MuseResult
 from .utils.device import resolve_device
 
-__all__ = ["grf_config_from_arrays", "x_obs", "result_from_muse_tpu"]
+__all__ = ["grf_config_from_arrays", "x_obs", "packed_x_obs",
+           "whites_from_arrays", "result_from_muse_tpu"]
 
 
 def grf_config_from_arrays(n, sigma_noise, gamma, k0, k, herm_weight, *,
                            infer_tilt: bool = False,
-                           device="cpu") -> GrfConfig:
+                           device="cuda") -> GrfConfig:
     """A port ``GrfConfig`` holding the JAX config's ``k`` and
     ``herm_weight`` arrays as they are."""
     return GrfConfig(int(n), float(sigma_noise), float(gamma), float(k0),
@@ -28,10 +30,30 @@ def grf_config_from_arrays(n, sigma_noise, gamma, k0, k, herm_weight, *,
                      herm_weight=np.asarray(herm_weight))
 
 
-def x_obs(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
+def x_obs(x, device="cuda", dtype=torch.float32) -> torch.Tensor:
     """The JAX side's observed data as a tensor on ``device``."""
     return torch.tensor(np.asarray(x), dtype=dtype,
                         device=resolve_device(device))
+
+
+def packed_x_obs(x, n: int, device="cuda") -> torch.Tensor:
+    """A real (n, n) field packed as ``grf_spectral_problem`` carries its
+    data, pack(√w/n · rfft2(x)), on the host in float64 (muse_tpu
+    grf.py:633-640), as a float32 tensor on ``device``."""
+    x = np.asarray(x)
+    if x.shape != (n, n):
+        raise ValueError(f"expected an ({n}, {n}) field, got {x.shape}")
+    herm_weight = GrfConfig(n, device="cpu").herm_weight
+    return torch.tensor(pack_field_host(x, herm_weight, n),
+                        device=resolve_device(device))
+
+
+def whites_from_arrays(w1, w2, device="cuda") -> tuple:
+    """The whites of ``muse_tpu``'s ``comp.sample_whites(keys)`` (two
+    (B, L) arrays for the packed GRF) as the port's ``W_all`` tuple."""
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(w), dtype=torch.float32, device=dev)
+                 for w in (w1, w2))
 
 
 def result_from_muse_tpu(filename: str) -> MuseResult:

@@ -1,3 +1,5 @@
-from .grf import GrfConfig, grf_field_problem, grf_marginal_mle
+from .grf import (GrfConfig, grf_field_problem, grf_marginal_mle,
+                  grf_spectral_problem, hermitian_white_packed)
 
-__all__ = ["GrfConfig", "grf_field_problem", "grf_marginal_mle"]
+__all__ = ["GrfConfig", "grf_field_problem", "grf_marginal_mle",
+           "grf_spectral_problem", "hermitian_white_packed"]

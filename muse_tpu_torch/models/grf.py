@@ -1,10 +1,11 @@
-"""Gaussian-random-field models: the field GRF of slice 1.
+"""Gaussian-random-field models: the field GRF and the packed spectral GRF.
 
-Counterpart of ``muse_tpu/models/grf.py``'s ``GrfConfig`` (the ``"fft"``
-transform mode; grf.py:110-173), ``grf_field_problem`` (grf.py:665-738) and
-``grf_marginal_mle`` (grf.py:741-805). The whitened ``grf_problem`` and the
-packed ``grf_spectral_problem`` are not ported yet (ROADMAP Queue 1
-items 1 and 11).
+Counterpart of ``muse_tpu/models/grf.py``'s hermitian white sampler
+(grf.py:46-107), ``GrfConfig`` (the ``"fft"`` transform mode;
+grf.py:110-173), ``grf_spectral_problem`` (grf.py:416-662),
+``grf_field_problem`` (grf.py:665-738) and ``grf_marginal_mle``
+(grf.py:741-805). The pixel-space whitened ``grf_problem`` is not ported
+yet (ROADMAP Queue 1 item 11).
 
 ``grf_field_problem`` infers the log-amplitude θ of the power spectrum
 C_k(θ) = e^θ (k+k0)^(−γ) of a 2D field z from x = z + σ·noise. Its latent
@@ -13,13 +14,21 @@ IS the field, and its log-likelihood's Fourier-space term
 ``ops/grf_spectrum.py`` on a card. The MAP is the Wiener filter
 ẑ_k = C x̂_k/(C+σ²), batched over lanes.
 
+``grf_spectral_problem`` carries x and the white latent in the isometric
+packing ṽ = pack(√w/n · rfft2(v)), where every operator is diagonal: its
+MAP is a batched PCG whose operator and curvature run in the fused
+``spectrum_quadform_and_grad`` kernel, and its analytic θ-score in the
+``spectrum_quadform`` kernel.
+
 Transforms are ``torch.fft`` with the default "backward" norm, as
 ``jnp.fft`` uses. Every tensor lives on the configuration's device, in
-float32.
+float32; the device defaults to the card (``"cuda"``) and raises where
+there is none.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,13 +38,86 @@ from ..adapters.simple import SimpleMuseProblem
 from ..utils.device import resolve_device
 from ..utils.keys import lane_generator
 
-__all__ = ["GrfConfig", "grf_field_problem", "grf_marginal_mle"]
+__all__ = ["GrfConfig", "grf_field_problem", "grf_spectral_problem",
+           "grf_marginal_mle", "hermitian_white_packed", "pack_field_host"]
 
 
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+@functools.lru_cache(maxsize=None)
+def _herm_white_coeffs(n: int):
+    """Mask coefficients for drawing pack(rfft2(N(0,1)^{n×n})) by indexing.
+
+    A copy of muse_tpu's ``_herm_white_coeffs`` (grf.py:49-84). Per packed
+    coordinate of a hermitian white spectrum: generic modes (herm weight 2)
+    are iid N(0,1); in the two self-mirrored columns (0 and n/2) rows r and
+    n−r are conjugate duplicates (re copied, im negated, each N(0,1/2));
+    the four self-conjugate modes are real N(0,1). Encoded as a
+    mask-weighted combination of a normal draw and its row-flip
+    r→(n−r) mod n. Returns four read-only (n, n//2+1) float32 arrays
+    (a, b, c, d): re = a·g + b·flip(g), im = c·h + d·flip(h).
+    """
+    nr = n // 2 + 1
+    a = np.ones((n, nr), np.float32)         # own-draw coefficient (re)
+    b = np.zeros((n, nr), np.float32)        # flipped-draw coefficient
+    c = np.ones((n, nr), np.float32)         # own-draw coefficient (im)
+    d = np.zeros((n, nr), np.float32)
+    self_rows = [0] + ([n // 2] if n % 2 == 0 else [])
+    spec_cols = [0] + ([nr - 1] if n % 2 == 0 else [])
+    for col in spec_cols:
+        for r in range(n):
+            if r in self_rows:
+                a[r, col], c[r, col] = 1.0, 0.0      # real mode
+            elif r < n - r:
+                a[r, col] = c[r, col] = 1.0 / np.sqrt(2.0)
+            else:                                    # mirror of n−r
+                a[r, col] = c[r, col] = 0.0
+                b[r, col] = 1.0 / np.sqrt(2.0)
+                d[r, col] = -1.0 / np.sqrt(2.0)
+    for v in (a, b, c, d):
+        v.flags.writeable = False
+    return a, b, c, d
+
+
+def _herm_white_tensors(n: int, device) -> tuple:
+    return tuple(torch.tensor(v, device=device) for v in _herm_white_coeffs(n))
+
+
+def _herm_white_draw(gen: torch.Generator, n: int, coeffs) -> torch.Tensor:
+    a, b, c, d = coeffs
+    shape = (n, n // 2 + 1)
+    g = torch.randn(shape, generator=gen, device=a.device)
+    h = torch.randn(shape, generator=gen, device=a.device)
+
+    def flip(v):                              # r → (n − r) mod n
+        return torch.roll(v.flip(0), 1, dims=0)
+
+    re = a * g + b * flip(g)
+    im = c * h + d * flip(h)
+    return torch.cat([re.reshape(-1), im.reshape(-1)])
+
+
+def hermitian_white_packed(gen: torch.Generator, n: int) -> torch.Tensor:
+    """Draw pack(rfft2(white n×n field))-distributed noise without an FFT.
+
+    Two (n, n//2+1) normal draws from ``gen`` (g, then h), combined by the
+    masks of :func:`_herm_white_coeffs`; the (L,) result, L = 2·n·(n//2+1),
+    lies on ``gen``'s device (muse_tpu grf.py:87-107, with a generator in
+    place of the key)."""
+    return _herm_white_draw(gen, n, _herm_white_tensors(n, gen.device))
+
+
+def pack_field_host(x, herm_weight, n: int) -> np.ndarray:
+    """Real (n, n) field → packed (L,) float32, on the host in float64
+    (muse_tpu grf.py:633-640): pack(√w/n · rfft2(x))."""
+    xf = np.fft.rfft2(np.asarray(_host(x), np.float64))
+    xf = xf * (np.sqrt(np.asarray(_host(herm_weight), np.float64)) / n)
+    return np.concatenate([xf.real.reshape(-1),
+                           xf.imag.reshape(-1)]).astype(np.float32)
 
 
 class GrfConfig:
@@ -47,7 +129,7 @@ class GrfConfig:
 
     def __init__(self, n: int = 256, sigma_noise: float = 1.0,
                  gamma: float = 2.0, k0: float = 1.0,
-                 infer_tilt: bool = False, *, device="cpu",
+                 infer_tilt: bool = False, *, device="cuda",
                  k=None, herm_weight=None):
         self.n = n
         self.sigma_noise = sigma_noise
@@ -104,7 +186,7 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                       k0: float = 1.0, theta_true: float = 0.0,
                       data_seed: int = 42, x_obs=None,
                       prior_std: float = 3.0,
-                      device="cpu") -> SimpleMuseProblem:
+                      device="cuda") -> SimpleMuseProblem:
     """Non-whitened GRF: the latent IS the field z ~ N(0, F⁻¹CF).
 
       log p(x, z|θ) = −½ [ Σ(x−z)²/σ² + Σ_k w_k|ẑ_k|²/C_k / n²
@@ -160,6 +242,205 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     prob = SimpleMuseProblem(x_obs, sample_x_z, log_like, log_prior,
                              custom_zhat=zhat_wiener, device=dev)
     prob.grf_config = cfg
+    return prob
+
+
+def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
+                         n: int = 256, sigma_noise: float = 1.0,
+                         gamma: float = 2.0, k0: float = 1.0,
+                         infer_tilt: bool = False, theta_true=None,
+                         data_seed: int = 42, x_obs=None, solver: str = "cg",
+                         cg_maxiter: int = 200, prior_std: float = 3.0,
+                         mesh=None, noise: str = "marginal",
+                         device="cuda") -> SimpleMuseProblem:
+    """The whitened GRF with x AND z in packed-spectral coordinates.
+
+    Counterpart of muse_tpu's ``grf_spectral_problem`` (grf.py:416-662):
+    the observation and the white latent are carried in the isometric
+    packing ṽ = pack(√w/n · rfft2(v)) of length L = 2·n·(n//2+1), where
+    the MAP operator, the θ-score and the implicit-H preconditioner are
+    all diagonal.
+
+      * ``noise="marginal"`` (default): x̃ = √(C+σ²)·w₁ and the conditional
+        ũ|x̃ = (√C/(C+σ²))·x̃ + √(σ²/(C+σ²))·w₂, with w₁, w₂ hermitian
+        white draws (:func:`hermitian_white_packed`). x depends on w₁ alone
+        (``x_white_parts = (0,)``), so the iteration neither keeps w₂
+        resident nor computes ũ. ``"direct"``: x̃ = √C·ũ + σ·ẽ from the same
+        sampler. ``"fft"``: the two whites are packed rfft2s of pixel
+        normals.
+      * ``solver="cg"``: the batched PCG of ``ops/cg.py`` with A = 1 + C/σ²
+        and M⁻¹ = 1/A; its operator and curvature (Ap, pᵀAp) come from the
+        fused ``spectrum_quadform_and_grad`` kernel on a card.
+        ``"direct"``: the closed form û = √C x̃/(σ²+C).
+      * ``grad_theta``: the analytic score ½Σ x̃²·∂C/(C+σ²)² through the
+        ``spectrum_quadform`` kernel, one launch per batched evaluation.
+
+    ``x_obs`` may be a real (n, n) field (packed on the host in float64)
+    or an already packed (L,) vector; without it the data are drawn at
+    ``theta_true`` from ``data_seed``. ``prob.x_real`` holds the pixel
+    field for closed-form oracles (:func:`grf_marginal_mle`).
+    ``solver="lbfgs"`` and ``mesh`` are not ported yet (ROADMAP Queue 1
+    items 6 and 10). ``config``, when given, fixes the device.
+    """
+    from ..ops.cg import batched_cg
+    from ..ops.grf_spectrum import (spectrum_quadform,
+                                    spectrum_quadform_and_grad)
+
+    if noise not in ("marginal", "direct", "fft"):
+        raise ValueError(
+            f"noise must be 'marginal'|'direct'|'fft', got {noise!r}")
+    if solver == "lbfgs":
+        raise NotImplementedError(
+            "grf_spectral_problem(solver='lbfgs') needs the generic batched "
+            "L-BFGS MAP solver, not ported yet (ROADMAP Queue 1 item 6)")
+    if solver not in ("cg", "direct"):
+        raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
+                         f"{solver!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "grf_spectral_problem(mesh=...) is not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+    cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
+                              device=device)
+    n = cfg.n
+    s2 = cfg.sigma_noise ** 2
+    dev = cfg.device
+    nr = n // 2 + 1
+    grid = (n, 2 * nr)       # the kernels' (n, 2m) view of a packed (L,)
+    sqw_n = torch.sqrt(cfg.herm_weight) / n
+    sqw_n_host = np.sqrt(np.asarray(_host(cfg.herm_weight), np.float64)) / n
+    logk_tiled = torch.log(cfg.k + cfg.k0).reshape(-1).repeat(2)
+    coeffs = _herm_white_tensors(n, dev)
+
+    def _C2(theta):
+        """Spectrum per packed coordinate: C_k tiled over (re, im)."""
+        return cfg.spectrum(theta).reshape(-1).repeat(2)
+
+    def pack_field(v):
+        """Real (n, n) field → packed (L,) on the device."""
+        zs = torch.fft.rfft2(v, dim=(-2, -1)) * sqw_n
+        return torch.cat([zs.real.reshape(-1), zs.imag.reshape(-1)])
+
+    def unpack_field(vt):
+        """Packed (L,) → real (n, n) field, numpy float64 on the host."""
+        re, im = np.split(np.asarray(_host(vt), np.float64), 2)
+        zf = (re + 1j * im).reshape(n, nr) / sqw_n_host
+        return np.fft.irfft2(zf, s=(n, n))
+
+    # ---- packed white noise and the sample completion --------------- #
+    if noise == "fft":
+        def sample_white(gen):
+            return tuple(pack_field(torch.randn((n, n), generator=gen,
+                                                device=dev))
+                         for _ in range(2))
+    else:
+        def sample_white(gen):
+            return (_herm_white_draw(gen, n, coeffs),
+                    _herm_white_draw(gen, n, coeffs))
+
+    if noise == "marginal":
+        # x̃ ~ N(0, C+σ²) and ũ|x̃ ~ N(√C x̃/(C+σ²), σ²/(C+σ²)): the same
+        # joint law as the other modes, with x a function of w₁ alone
+        def x_of_white(W, theta):
+            w1, w2 = W
+            C2 = _C2(theta)
+            D = C2 + s2
+            xt = torch.sqrt(D) * w1
+            if w2 is None:
+                return xt, None
+            return xt, (torch.sqrt(C2) / D) * xt + torch.sqrt(s2 / D) * w2
+    else:
+        def x_of_white(W, theta):
+            ut, et = W
+            return torch.sqrt(_C2(theta)) * ut + cfg.sigma_noise * et, ut
+
+    def sample_x_z(gen, theta):
+        # the CRN stream of every noise mode is the white split composed
+        return x_of_white(sample_white(gen), theta)
+
+    def log_like(xt, ut, theta):
+        r = xt - torch.sqrt(_C2(theta)) * ut
+        return -0.5 * (torch.sum(r * r) / s2 + torch.sum(ut * ut))
+
+    def log_prior(theta):
+        th = torch.atleast_1d(cfg.theta_tensor(theta))
+        return -torch.sum(th ** 2) / (2 * prior_std ** 2)
+
+    def grad_theta(xt, ut, theta):
+        """Analytic ∂θ log_like at the exact MAP: ½Σ x̃²·∂C/(C+σ²)², one
+        spectrum quadform per θ component."""
+        C2 = _C2(theta)
+        wq = C2 / (C2 + s2) ** 2
+        z = xt.reshape((1,) + grid)
+        g0 = 0.5 * spectrum_quadform(z, wq.reshape(grid))[0]
+        if not cfg.infer_tilt:
+            scalar = (theta.dim() if isinstance(theta, torch.Tensor)
+                      else np.ndim(theta)) == 0
+            return g0 if scalar else g0.reshape(1)
+        g1 = 0.5 * spectrum_quadform(z, (-logk_tiled * wq).reshape(grid))[0]
+        return torch.stack([g0, g1])
+
+    def zhat_cg(xs, Z0, th_flat, atol):
+        """Batched PCG with the diagonal operator A = 1 + C/σ²."""
+        C2 = _C2(th_flat)[None]
+        A = 1.0 + C2 / s2
+        A_grid = A.reshape(grid)
+        b = torch.sqrt(C2) * xs / s2
+        r0 = b - A * Z0
+        b_norm = torch.linalg.vector_norm(b, dim=-1)
+        # absolute gradient sup-norm atol → per-lane relative L2 tolerance
+        rel_tol = atol * float(np.sqrt(np.float32(Z0.shape[1]))) / \
+            torch.clamp(b_norm, min=1e-30)
+
+        def matvec_and_curvature(P):
+            quad, half = spectrum_quadform_and_grad(
+                P.reshape((P.shape[0],) + grid), A_grid)
+            return half.reshape(P.shape), quad
+
+        res = batched_cg(None, None, Z0, tol=rel_tol,
+                         maxiter=cg_maxiter, precond=lambda R: R / A,
+                         r0=r0, z0=r0 / A, b_norm=b_norm,
+                         matvec_and_curvature=matvec_and_curvature)
+        return res.x, {"converged": res.converged,
+                       "failed": ~torch.isfinite(res.r_norm),
+                       "iterations": res.iterations, "g_norm": res.r_norm}
+
+    def zhat_direct(xs, Z0, th_flat, atol):
+        C2 = _C2(th_flat)[None]
+        Z = torch.sqrt(C2) * xs / (s2 + C2)
+        B = Z.shape[0]
+        return Z, {"converged": torch.ones(B, dtype=torch.bool, device=dev),
+                   "failed": torch.zeros(B, dtype=torch.bool, device=dev)}
+
+    if x_obs is None:
+        if theta_true is None:
+            theta_true = (torch.zeros(2, device=dev) if cfg.infer_tilt
+                          else 0.0)
+        x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
+    elif np.ndim(_host(x_obs)) == 2:
+        x_obs = torch.tensor(pack_field_host(x_obs, cfg.herm_weight, n),
+                             device=dev)
+    else:
+        x_obs = torch.tensor(np.asarray(_host(x_obs), np.float32),
+                             device=dev)
+
+    prob = SimpleMuseProblem(
+        x_obs, sample_x_z, log_like, log_prior,
+        custom_zhat=zhat_cg if solver == "cg" else zhat_direct,
+        grad_theta_log_like=grad_theta, device=dev,
+        sample_white=sample_white, x_of_white=x_of_white,
+        x_white_parts=(0,) if noise == "marginal" else None)
+    prob.grf_config = cfg
+    prob.x_real = unpack_field(x_obs)     # for closed-form oracles
+    prob.pack_field = pack_field
+    prob.unpack_field = unpack_field
+
+    def h_precond(w, x, th_flat):
+        """Exact A⁻¹ for implicit-diff get_H: diagonal in packed
+        coordinates."""
+        return w / (1.0 + _C2(th_flat) / s2)
+
+    prob.suggested_h_precond = h_precond
     return prob
 
 

@@ -1,11 +1,20 @@
-"""The GRF spectrum quadform, Σ_k w_k|ẑ_k|²/C_k per lane, on a CUDA kernel.
+"""The GRF spectrum quadforms, Σ_k w_k|ẑ_k|²/C_k per lane, on CUDA kernels.
 
-Counterpart of ``muse_tpu/ops/pallas_grf.py``'s ``spectrum_quadform``. The
-value runs in the hand-written kernel ``csrc/spectrum_quadform.cu`` (which
-replaces the TPU kernel ``_quad_only_kernel``, pallas_grf.py:137) for CUDA
-tensors, and in :func:`spectrum_quadform_plain` for CPU tensors. A CUDA
-tensor never falls back to the plain version: the kernel launches or the
-call raises.
+Counterpart of ``muse_tpu/ops/pallas_grf.py``:
+
+  * ``spectrum_quadform`` runs in the hand-written kernel
+    ``csrc/spectrum_quadform.cu`` (which replaces the TPU kernel
+    ``_quad_only_kernel``, pallas_grf.py:137) for CUDA tensors, and in
+    :func:`spectrum_quadform_plain` for CPU tensors;
+  * ``spectrum_quadform_and_grad`` — the value and the half-gradient z·w in
+    one pass — runs in the same source's fused kernel (which replaces
+    ``_quadform_kernel``, pallas_grf.py:73) for CUDA tensors, and in
+    :func:`spectrum_quadform_and_grad_plain` for CPU tensors. Like the JAX
+    function it has no VJP: its consumer, the packed GRF's PCG
+    (``models/grf.py``, through ``ops/cg.py``), runs outside autograd.
+
+A CUDA tensor never falls back to a plain version: the kernel launches or
+the call raises.
 
 Layout as in the JAX package: spectra are packed re|im along the last
 axis, ``z_ri`` of shape (B, n, 2m) with m = n//2 + 1 (:func:`pack_rfft2`),
@@ -22,8 +31,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["spectrum_quadform", "spectrum_quadform_plain",
-           "spectrum_quadform_cuda", "SpectrumQuadform", "pack_rfft2",
-           "pack_weights", "reset_counts"]
+           "spectrum_quadform_cuda", "SpectrumQuadform",
+           "spectrum_quadform_and_grad", "spectrum_quadform_and_grad_plain",
+           "spectrum_quadform_and_grad_cuda", "pack_rfft2", "pack_weights",
+           "reset_counts"]
 
 
 def pack_rfft2(z: torch.Tensor) -> torch.Tensor:
@@ -43,6 +54,31 @@ def spectrum_quadform_plain(z_ri: torch.Tensor,
     return torch.einsum("bnm,nm->b", z_ri * z_ri, invCw2)
 
 
+def _check_kernel_args(name, z_ri, invCw2):
+    """Raise on what the kernels do not take; return (B, L, slab count S)."""
+    if not (z_ri.is_cuda and invCw2.is_cuda):
+        raise ValueError(f"{name} takes CUDA tensors, got {z_ri.device} and "
+                         f"{invCw2.device}")
+    if z_ri.device != invCw2.device:
+        raise ValueError(f"z_ri on {z_ri.device} but invCw2 on "
+                         f"{invCw2.device}")
+    if z_ri.dtype != torch.float32 or invCw2.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {z_ri.dtype} and "
+                        f"{invCw2.dtype}")
+    if z_ri.dim() != 3 or tuple(invCw2.shape) != tuple(z_ri.shape[1:]):
+        raise ValueError(f"shapes (B, n, 2m) and (n, 2m) expected, got "
+                         f"{tuple(z_ri.shape)} and {tuple(invCw2.shape)}")
+    if not (z_ri.is_contiguous() and invCw2.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+    B = z_ri.shape[0]
+    L = z_ri.shape[1] * z_ri.shape[2]
+    if not 1 <= B <= 65535 or L == 0:
+        raise ValueError(f"need 1 <= B <= 65535 lanes and L > 0, got B={B}, "
+                         f"L={L}")
+    from .kernels import load_library
+    return B, L, -(-L // int(load_library().muse_spectrum_quadform_slab()))
+
+
 def spectrum_quadform_cuda(z_ri: torch.Tensor,
                            invCw2: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card → (B,).
@@ -50,32 +86,11 @@ def spectrum_quadform_cuda(z_ri: torch.Tensor,
     ``spectrum_quadform_cuda.launches`` counts the launches."""
     from .kernels import load_library
 
-    if not (z_ri.is_cuda and invCw2.is_cuda):
-        raise ValueError("spectrum_quadform_cuda takes CUDA tensors, got "
-                         f"{z_ri.device} and {invCw2.device}")
-    if z_ri.device != invCw2.device:
-        raise ValueError(f"z_ri on {z_ri.device} but invCw2 on "
-                         f"{invCw2.device}")
-    if z_ri.dtype != torch.float32 or invCw2.dtype != torch.float32:
-        raise TypeError("spectrum_quadform_cuda takes float32, got "
-                        f"{z_ri.dtype} and {invCw2.dtype}")
-    if z_ri.dim() != 3 or tuple(invCw2.shape) != tuple(z_ri.shape[1:]):
-        raise ValueError(f"shapes (B, n, 2m) and (n, 2m) expected, got "
-                         f"{tuple(z_ri.shape)} and {tuple(invCw2.shape)}")
-    if not (z_ri.is_contiguous() and invCw2.is_contiguous()):
-        raise ValueError("spectrum_quadform_cuda takes contiguous tensors")
-    B = z_ri.shape[0]
-    L = z_ri.shape[1] * z_ri.shape[2]
-    if not 1 <= B <= 65535 or L == 0:
-        raise ValueError(f"need 1 <= B <= 65535 lanes and L > 0, got B={B}, "
-                         f"L={L}")
-    lib = load_library()
-    slab = int(lib.muse_spectrum_quadform_slab())
-    S = -(-L // slab)
+    B, L, S = _check_kernel_args("spectrum_quadform_cuda", z_ri, invCw2)
     partial = torch.empty((B, S), dtype=torch.float32, device=z_ri.device)
     out = torch.empty((B,), dtype=torch.float32, device=z_ri.device)
     stream = torch.cuda.current_stream(z_ri.device).cuda_stream
-    rc = lib.muse_spectrum_quadform_f32(
+    rc = load_library().muse_spectrum_quadform_f32(
         z_ri.data_ptr(), invCw2.data_ptr(), partial.data_ptr(),
         out.data_ptr(), B, L, S, stream)
     if rc != 0:
@@ -151,7 +166,53 @@ def spectrum_quadform(z_ri: torch.Tensor, invCw2: torch.Tensor) -> torch.Tensor:
     return SpectrumQuadform.apply(z_ri, invCw2)
 
 
+def spectrum_quadform_and_grad_plain(z_ri: torch.Tensor, invCw2: torch.Tensor):
+    """Plain PyTorch version: (B, n, 2m), (n, 2m) → ((B,), (B, n, 2m))."""
+    g = z_ri * invCw2
+    return torch.einsum("bnm,bnm->b", z_ri, g), g
+
+
+def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
+    """Launch the fused CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card →
+    (quad (B,), half_grad (B, n, 2m)). ``half_grad`` is bitwise ``z_ri *
+    invCw2``. ``spectrum_quadform_and_grad_cuda.launches`` counts the
+    launches."""
+    from .kernels import load_library
+
+    B, L, S = _check_kernel_args("spectrum_quadform_and_grad_cuda", z_ri,
+                                 invCw2)
+    g = torch.empty_like(z_ri)
+    partial = torch.empty((B, S), dtype=torch.float32, device=z_ri.device)
+    out = torch.empty((B,), dtype=torch.float32, device=z_ri.device)
+    stream = torch.cuda.current_stream(z_ri.device).cuda_stream
+    rc = load_library().muse_spectrum_quadform_and_grad_f32(
+        z_ri.data_ptr(), invCw2.data_ptr(), g.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), B, L, S, stream)
+    if rc != 0:
+        raise RuntimeError(f"spectrum_quadform_and_grad kernel launch failed: "
+                           f"CUDA error {rc}")
+    spectrum_quadform_and_grad_cuda.launches += 1
+    return out, g
+
+
+spectrum_quadform_and_grad_cuda.launches = 0
+
+
+def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):
+    """(quad_b = Σ z_ri[b]·(z_ri[b]·invCw2), half_grad = z_ri·invCw2) in one
+    pass: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if z_ri.is_cuda:
+        return spectrum_quadform_and_grad_cuda(z_ri.contiguous(),
+                                               invCw2.contiguous())
+    if z_ri.device.type == "cpu":
+        return spectrum_quadform_and_grad_plain(z_ri, invCw2)
+    raise ValueError(f"spectrum_quadform_and_grad has no kernel for "
+                     f"{z_ri.device}")
+
+
 def reset_counts() -> None:
-    """Zero the kernel's launch count and the forward-evaluation count."""
+    """Zero both kernels' launch counts and the quadform's forward-evaluation
+    count."""
     spectrum_quadform_cuda.launches = 0
+    spectrum_quadform_and_grad_cuda.launches = 0
     SpectrumQuadform.evaluations = 0

@@ -98,4 +98,8 @@ def load_library() -> ctypes.CDLL:
     lib.muse_spectrum_quadform_f32.argtypes = [vp, vp, vp, vp, ll, ll,
                                                ctypes.c_int, vp]
     lib.muse_spectrum_quadform_f32.restype = ctypes.c_int
+    lib.muse_spectrum_quadform_and_grad_f32.argtypes = [vp, vp, vp, vp, vp,
+                                                        ll, ll, ctypes.c_int,
+                                                        vp]
+    lib.muse_spectrum_quadform_and_grad_f32.restype = ctypes.c_int
     return lib

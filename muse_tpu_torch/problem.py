@@ -14,8 +14,12 @@ Counterpart of ``muse_tpu/problem.py`` (the reference's
 
 x and z are tensors on the problem's ``device``; θ is a tensor (0-d for a
 scalar θ) or a mapping of tensors. Every user function must be composable
-with ``torch.func`` (``grad``, ``vmap``). The sampler takes a
+with ``torch.func`` (``grad``, ``vmap``, ``jacfwd``). The sampler takes a
 ``torch.Generator`` on the problem's device, never global RNG state.
+
+The device defaults to the card: a problem that is given no device (and
+no tensor to take one from) resolves ``"cuda"``, and raises where there is
+none. The CPU is used only when asked for.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+
+from .utils.device import resolve_device
 
 __all__ = ["MuseProblem", "check_self_consistency"]
 
@@ -38,8 +44,18 @@ class MuseProblem:
     #: observed data (x), a tensor on ``device``.
     x: Any = None
 
-    #: where the problem's tensors live.
-    device: torch.device = torch.device("cpu")
+    _device: Optional[torch.device] = None
+
+    @property
+    def device(self) -> torch.device:
+        """Where the problem's tensors live: the card unless set."""
+        if self._device is None:
+            self._device = resolve_device("cuda")
+        return self._device
+
+    @device.setter
+    def device(self, device) -> None:
+        self._device = resolve_device(device)
 
     #: bijector (``forward``, ``inverse``, ``log_det_jacobian`` on flat θ
     #: tensors) from θ's constrained space to the unconstrained space of the
@@ -56,6 +72,22 @@ class MuseProblem:
 
     #: optional analytic ``(x, z, θ) -> ∂θ log_like`` (∇θ_logLike override).
     grad_theta_log_like = None
+
+    #: optional CRN white split of the sampler (muse_tpu/problem.py:137-156):
+    #: ``sample_white(generator) -> W`` draws every θ-independent random
+    #: intermediate as a tuple of tensors, and ``x_of_white(W, θ) -> (x, z)``
+    #: completes the sample deterministically, such that
+    #: ``sample_x_z(g, θ) ≡ x_of_white(sample_white(g), θ)`` for generators
+    #: seeded alike. ``muse_fit`` then draws W once per fit and runs
+    #: ``muse_step_white``; implicit-diff ``get_H`` differentiates
+    #: ``x_of_white`` in θ. ``check_self_consistency`` checks the contract.
+    sample_white = None
+    x_of_white = None
+
+    #: the parts of W that x depends on (indices into the tuple), or None for
+    #: all. The iteration keeps only these resident and passes None for the
+    #: others; ``x_of_white`` then returns ``(x, None)``.
+    x_white_parts: Optional[Tuple[int, ...]] = None
 
     def sample_x_z(self, generator: torch.Generator, theta) -> Tuple[Any, Any]:
         """Joint forward sample ``(x, z) ~ P(x, z | θ)``, a deterministic
@@ -100,7 +132,10 @@ def check_self_consistency(problem: MuseProblem, theta, *, seed: int = 0,
       2. prior volume factor: ``logPrior(θ) ≈ logPrior_t(transform(θ)) + V(θ)``;
       3. chain rule across θ-spaces:
          ``∇θ logLike(θ) ≈ J(θ)ᵀ ∇θ′ logLike_t(θ′) + ∇θ V(θ)``;
-      4. AD against central finite differences of ∇z log_like.
+      4. AD against central finite differences of ∇z log_like;
+      5. when the problem declares the white split, that
+         ``x_of_white(sample_white(g), θ)`` reproduces ``sample_x_z(g, θ)``
+         for two generators seeded alike.
 
     Raises AssertionError listing every failed check.
     """
@@ -170,6 +205,21 @@ def check_self_consistency(problem: MuseProblem, theta, *, seed: int = 0,
         if not err < fd_atol:
             failures.append(f"∇z AD vs FD [coord {i}]: err {err:.3e} "
                             f"(fd_atol {fd_atol:.3e})")
+
+    # 5. the CRN white split, when declared
+    if problem.x_of_white is not None or problem.sample_white is not None:
+        if problem.x_of_white is None or problem.sample_white is None:
+            failures.append("sample_white/x_of_white must be declared "
+                            "together (one of them is None)")
+        else:
+            W = problem.sample_white(lane_generator(seed, dev))
+            xw, zw = problem.x_of_white(W, spec.unflatten(th))
+            for name, a, b in (("x", x, xw), ("z", z, zw)):
+                err = float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
+                if not err < atol:
+                    failures.append(
+                        f"white-split {name}: x_of_white(sample_white(g), θ) "
+                        f"differs from sample_x_z(g, θ) by {err:.3e}")
 
     if failures:
         raise AssertionError("self-consistency failures:\n  " +

@@ -7,9 +7,15 @@ once, eagerly, on the problem's device:
   * ``muse_step``  — sample all sims at θ (common random numbers), run all
                      latent MAP solves in one batched call, and take the
                      per-lane θ-gradients (src/muse.jl:169-176);
+  * ``sample_whites``/``muse_step_white`` — the same step with the
+                     θ-independent randomness drawn once per fit, for
+                     problems that declare the CRN white split;
   * ``j_sims``     — get_J's per-sim pipeline (src/muse.jl:508-513);
   * ``h_fiducial``/``h_fd`` — get_H's finite-difference pipeline, batched
-                     over sims × θ-columns × stencil (src/muse.jl:417-433).
+                     over sims × θ-columns × stencil (src/muse.jl:417-433);
+  * ``h_implicit_with``/``h_implicit_from_whites`` — get_H's
+                     implicit-differentiation estimator (src/muse.jl:335-405),
+                     batched over a chunk of sims.
 
 Lane 0..B-1 of every batched tensor is one simulation; the observed data
 ride as the lane whose global id is 0 in ``muse_step``
@@ -19,8 +25,7 @@ kernel with a ``vmap`` rule (``ops/grf_spectrum.py``) sees every lane in
 one launch. Sampling is a loop over the lanes' generators.
 
 Not ported yet: the generic batched L-BFGS MAP solver for problems
-without ``custom_zhat`` (ROADMAP Queue 1 item 6), the white-hoisted step
-(item 3) and implicit-differentiation H (item 4). The
+without ``custom_zhat`` (ROADMAP Queue 1 item 6). The
 JAX package's ``optimization_barrier`` fences, odd-lane padding and
 value certifier guard against faults of the TPU compiler and have no
 counterpart here.
@@ -29,8 +34,9 @@ counterpart here.
 from __future__ import annotations
 
 import torch
-from torch.func import grad, hessian, vmap
+from torch.func import grad, hessian, jacfwd, jvp, vmap
 
+from ..ops.cg import batched_cg
 from ..problem import MuseProblem
 from ..theta import ThetaSpec
 from ..utils.keys import lane_generator
@@ -151,15 +157,65 @@ class CompiledProblem:
         xs_all, _ = self._sample_batch(seeds, [th] * len(seeds))
         return self._step_from_xs(xs_all, th, th_t, Z_prev, lane_ids, atol)
 
-    def muse_step_white(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the white-hoisted muse step is not ported yet (ROADMAP Queue 1 "
-            "item 3)")
+    # ------------------------------------------------------------ #
+    # CRN white-hoisted iteration (problem.sample_white / x_of_white)
+    # ------------------------------------------------------------ #
 
-    def sample_whites(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the white-hoisted muse step is not ported yet (ROADMAP Queue 1 "
-            "item 3)")
+    def _require_whites(self, what):
+        if self.problem.sample_white is None or \
+                self.problem.x_of_white is None:
+            raise NotImplementedError(
+                f"{what} needs the problem's CRN white split "
+                "(sample_white / x_of_white, problem.py); this problem "
+                "declares none")
+
+    def _x_parts(self, W) -> tuple:
+        """W with None in place of the parts x does not depend on
+        (outside ``problem.x_white_parts``)."""
+        keep = self.problem.x_white_parts
+        return tuple(w if keep is None or i in keep else None
+                     for i, w in enumerate(W))
+
+    def sample_whites(self, seeds, x_only: bool = False):
+        """Per-lane θ-independent draws, one generator per seed: a tuple of
+        (B, …) tensors, one per part of W. Run once per fit.
+
+        ``x_only`` keeps only the parts that x depends on and puts None in
+        place of the others, so a part the iteration never reads is not
+        kept resident."""
+        self._require_whites("sample_whites")
+        lanes = []
+        for s in seeds:
+            W = tuple(self.problem.sample_white(
+                lane_generator(s, self.device)))
+            lanes.append(self._x_parts(W) if x_only else W)
+        return tuple(None if parts[0] is None else torch.stack(parts)
+                     for parts in zip(*lanes))
+
+    def _xs_of_whites(self, W_all, th_flat):
+        """x of every lane from its whites at θ: the parts x does not
+        depend on are dropped first, so ``x_of_white`` computes no z (for
+        the packed GRF: never ũ)."""
+        W_all = self._x_parts(W_all)
+        idx = [i for i, w in enumerate(W_all) if w is not None]
+        theta = self.spec.unflatten(th_flat)
+
+        def one(*parts):
+            W = list(W_all)
+            for i, w in zip(idx, parts):
+                W[i] = w
+            return self.problem.x_of_white(tuple(W), theta)[0]
+
+        return vmap(one)(*[W_all[i] for i in idx])
+
+    def muse_step_white(self, th, th_t, W_all, Z_prev, lane_ids, atol):
+        """:meth:`muse_step` with the RNG hoisted: takes the per-lane whites
+        ``W_all`` (from :meth:`sample_whites`) instead of seeds and completes
+        only x with ``x_of_white``. Equal to :meth:`muse_step` on the same
+        seeds under the white-split contract."""
+        self._require_whites("muse_step_white")
+        xs_all = self._xs_of_whites(W_all, th)
+        return self._step_from_xs(xs_all, th, th_t, Z_prev, lane_ids, atol)
 
     def j_sims(self, seeds, th, atol):
         """get_J per-sim pipeline: sample at θ₀, MAP warm-started from the
@@ -204,9 +260,93 @@ class CompiledProblem:
                 "failed": aux["failed"].reshape(nsims, ntheta, ns)}
 
     def h_implicit_with(self, precond=None):
-        raise NotImplementedError(
-            "implicit-differentiation get_H is not ported yet (ROADMAP "
-            "Queue 1 item 4)")
+        """get_H implicit-differentiation mode (src/muse.jl:335-405): a
+        function ``(seeds, th, atol, cg_maxiter, cg_tol, h1_is_zero) ->
+        (Hs (S, nθ, nθ), resid (S, nθ))`` over a chunk of sims.
+
+        The whites are drawn with the lanes' generators outside any
+        transform (``torch.func.jacfwd`` refuses random ops), and
+        :meth:`h_implicit_from_whites` differentiates ``x_of_white`` — the
+        sampler, by the white-split contract. ``precond(w, x, th_flat)`` is
+        the reference's ``Pl`` hook (src/muse.jl:312): an approximation of
+        A⁻¹w for one sim's flat z-vector w."""
+        self._require_whites("implicit-differentiation get_H")
+
+        def run(seeds, th, atol, cg_maxiter, cg_tol, h1_is_zero):
+            return self.h_implicit_from_whites(
+                self.sample_whites(seeds), th, atol, cg_maxiter, cg_tol,
+                h1_is_zero, precond)
+        return run
+
+    def h_implicit_from_whites(self, W_all, th, atol, cg_maxiter: int = 100,
+                               cg_tol: float = 1e-6, h1_is_zero=False,
+                               precond=None):
+        """Implicit-diff H for the sims whose whites are ``W_all``.
+
+        Per sim:  H = H1 + H2, with ẑ the MAP of x = x_of_white(W, θ₀):
+          H1    = ∂θsim ∇θ logLike(x(θsim), ẑ, θ₀)        (src/muse.jl:353-358)
+          dFdθ  = ∂θ ∇z logLike(x, ẑ, θ)                 (:361-365)
+          dFdθ1 = ∂θsim ∇z logLike(x(θsim), ẑ, θ₀)       (:366-371)
+          A     = −∇z² logLike(x, ·, θ₀) as an HVP        (:373-379)
+          H2    = −dFdθᵀ A⁻¹ dFdθ1                       (:380-387)
+        The fiducial MAPs of all sims are one batched solve; the A⁻¹
+        columns are one ``batched_cg`` with lanes = sims × θ-columns.
+        Returns (Hs (S, nθ, nθ), per-column CG residual ‖A y − b‖ (S, nθ)).
+        """
+        nth = th.shape[0]
+        W_all = tuple(W_all)
+        spec = self.spec
+
+        def x_at(W, t):
+            return self.problem.x_of_white(self._x_parts(W),
+                                           spec.unflatten(t))[0]
+
+        def x_z(*W):
+            x, z = self.problem.x_of_white(W, spec.unflatten(th))
+            return x, z.reshape(-1).to(self.dtype)
+
+        xs, zs = vmap(x_z)(*W_all)
+        S = xs.shape[0]
+        z_start = torch.stack([self._zhat_guess_flat(x, z, th)
+                               for x, z in zip(xs, zs)])
+        zhat, _ = self._solve_maps(xs, z_start, th, atol)
+
+        def grad_z(x, z, t):
+            return grad(lambda z_: self._ll(x, z_, t))(z)
+
+        def grad_t(x, z, t):
+            return grad(lambda t_: self._ll(x, z, t_))(t)
+
+        def per_sim(W, x, zh):
+            if h1_is_zero:
+                H1 = torch.zeros((nth, nth), dtype=self.dtype,
+                                 device=self.device)
+            else:
+                H1 = jacfwd(lambda t: grad_t(x_at(W, t), zh, th))(th)
+            dF = jacfwd(lambda t: grad_z(x, zh, t))(th)            # (nz, nθ)
+            dF1 = jacfwd(lambda t: grad_z(x_at(W, t), zh, th))(th)
+            return H1, dF, dF1
+
+        H1, dFdth, dFdth1 = vmap(per_sim)(W_all, xs, zhat)
+
+        # lanes = (sim, θ-column): solve A y = −dFdθ1 column by column,
+        # with A = −∇z² logLike at ẑ (SPD), as an HVP
+        x_l = xs.repeat_interleave(nth, dim=0)
+        zhat_l = zhat.repeat_interleave(nth, dim=0)
+
+        def neg_hvp(V):
+            return -vmap(lambda x, zh, v: jvp(
+                lambda z_: grad_z(x, z_, th), (zh,), (v,))[1])(x_l, zhat_l, V)
+
+        M = None if precond is None else (
+            lambda R: vmap(lambda w, x: precond(w, x, th))(R, x_l))
+        rhs = -dFdth1.transpose(1, 2).reshape(S * nth, self.nz)
+        res = batched_cg(neg_hvp, rhs, tol=cg_tol, maxiter=cg_maxiter,
+                         precond=M)
+        Y = res.x.reshape(S, nth, self.nz)               # rows: A⁻¹ columns
+        H2 = -torch.einsum("szi,sjz->sij", dFdth, Y)
+        resid = torch.linalg.vector_norm(neg_hvp(res.x) - rhs, dim=-1)
+        return H1 + H2, resid.reshape(S, nth)
 
     @property
     def certifier(self):

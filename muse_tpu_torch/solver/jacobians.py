@@ -11,9 +11,12 @@ Counterpart of ``muse_tpu/solver/jacobians.py`` (``get_J!``, reference
   * get_H, finite differences: sims × θ-columns × stencil in one batch per
     chunk (``CompiledProblem.h_fd``), ``fd_order`` 2 or 4. The step
     defaults to 0.1σ estimated from ``result.gs`` (src/muse.jl:411-414).
+  * get_H, implicit differentiation (``implicit_diff=True``): per chunk of
+    sims, ``CompiledProblem.h_implicit_with`` — jacfwd Jacobians, an HVP and
+    one batched CG over sims × θ-columns (src/muse.jl:335-405). Needs the
+    problem's CRN white split.
 
-Not ported yet: ``fd_order="adaptive"`` (ROADMAP Queue 1 item 5) and
-``implicit_diff=True`` (Queue 1 item 4).
+Not ported yet: ``fd_order="adaptive"`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from .compiled import CompiledProblem
 from .covariance import finalize_result
 
 __all__ = ["get_J", "get_H", "sample_covariance"]
+
+#: gradient atol of implicit-diff get_H's fiducial MAPs (src/muse.jl:344)
+IMPLICIT_FIT_ATOL = 1e-1
 
 
 def sample_covariance(gs: np.ndarray) -> np.ndarray:
@@ -200,33 +206,41 @@ def get_H(
     fd_order: int = 2,
     skip_errors: bool = False,
     implicit_diff: bool = False,
+    implicit_diff_H1_is_zero: bool = False,
+    implicit_diff_cg_maxiter: int = 100,
+    implicit_diff_cg_tol: float = 1e-6,
+    implicit_diff_precond=None,
     max_batch=None,
     dtype=torch.float32,
     compiled: Optional[CompiledProblem] = None,
     progress: bool = False,
     checkpoint_file: Optional[str] = None,
 ) -> MuseResult:
-    """Mean Jacobian of the MAP score wrt the sim-generation θ (``get_H!``),
-    by finite differences: ``fd_order=2`` central differences,
-    ``fd_order=4`` the 5-point Richardson stencil. Per-sim Jacobians land
+    """Mean Jacobian of the MAP score wrt the sim-generation θ (``get_H!``).
+
+    Finite differences: ``fd_order=2`` central differences, ``fd_order=4``
+    the 5-point Richardson stencil. ``implicit_diff=True``: the exact
+    implicit-function estimator, with the fiducial MAPs at the reference's
+    coarse atol 1e-1 (src/muse.jl:344) and the A⁻¹ columns by CG at
+    ``implicit_diff_cg_tol``/``implicit_diff_cg_maxiter``, preconditioned
+    by ``implicit_diff_precond(w, x, θ_flat)`` (the ``Pl`` hook,
+    src/muse.jl:312); the per-column CG residuals land in
+    ``result.metadata["implicit_diff_cg_resid"]``. Per-sim Jacobians land
     in ``result.Hs`` per device chunk (``result.Hs`` counts toward
     ``nsims``, src/muse.jl:317-319)."""
-    if implicit_diff:
-        raise NotImplementedError(
-            "implicit-differentiation get_H is not ported yet (ROADMAP "
-            "Queue 1 item 4)")
-    if fd_order == "adaptive":
-        raise NotImplementedError(
-            "adaptive finite differences are not ported yet (ROADMAP Queue 1 "
-            "item 5)")
-    if fd_order == 2:
-        offsets = np.array([1.0, -1.0])
-        weights = np.array([0.5, -0.5])
-    elif fd_order == 4:
-        offsets = np.array([1.0, -1.0, 2.0, -2.0])
-        weights = np.array([8.0, -8.0, -1.0, 1.0]) / 12.0
-    else:
-        raise ValueError("fd_order must be 2 or 4")
+    if not implicit_diff:
+        if fd_order == "adaptive":
+            raise NotImplementedError(
+                "adaptive finite differences are not ported yet (ROADMAP "
+                "Queue 1 item 5)")
+        if fd_order == 2:
+            offsets = np.array([1.0, -1.0])
+            weights = np.array([0.5, -0.5])
+        elif fd_order == 4:
+            offsets = np.array([1.0, -1.0, 2.0, -2.0])
+            weights = np.array([8.0, -8.0, -1.0, 1.0]) / 12.0
+        else:
+            raise ValueError("fd_order must be 2 or 4")
 
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
                                   compiled)
@@ -238,6 +252,15 @@ def get_H(
         return result
 
     seeds = sim_seeds(seed, nsims, salt=1)[nsims_existing:]
+    th_dev = comp.theta(th)
+
+    if implicit_diff:
+        _implicit_H(result, comp, seeds, th_dev, IMPLICIT_FIT_ATOL,
+                    implicit_diff_cg_maxiter, implicit_diff_cg_tol,
+                    implicit_diff_H1_is_zero, implicit_diff_precond,
+                    skip_errors, max_batch, progress, checkpoint_file)
+        _reduce_H(result, comp)
+        return result
 
     # FD step ≈ 0.1σ from the J sims (src/muse.jl:411-414)
     if step is None:
@@ -273,7 +296,6 @@ def get_H(
                 "pass skip_errors=True to drop them.")
         return Hs[~bad], int(bad.sum())
 
-    th_dev = comp.theta(th)
     n_dropped = 0
     pbar = ProgressReporter(nsims_remaining * (1 + ntheta * len(offsets)),
                             "get_H", enabled=progress)
@@ -300,6 +322,40 @@ def get_H(
 
     _reduce_H(result, comp)
     return result
+
+
+def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,
+                h1_is_zero, precond, skip_errors, max_batch, progress,
+                checkpoint_file):
+    """get_H's implicit-diff mode, one device chunk of sims at a time."""
+    h_impl = comp.h_implicit_with(precond)
+    resid_store = result.metadata.setdefault("implicit_diff_cg_resid", [])
+    n_dropped = 0
+    pbar = ProgressReporter(len(seeds), "get_H", enabled=progress)
+    try:
+        for chunk in _seed_chunks(seeds, max_batch):
+            c = len(chunk)
+            Hs_c, resid_c = h_impl(chunk, th_dev, fit_atol, cg_maxiter,
+                                   cg_tol, h1_is_zero)
+            Hs_c = Hs_c.detach().cpu().numpy().astype(np.float64)
+            resid_c = resid_c.detach().cpu().numpy()
+            bad = ~np.isfinite(Hs_c).all(axis=(1, 2))
+            if bad.any():
+                if not skip_errors:
+                    raise RuntimeError(
+                        f"get_H: {int(bad.sum())}/{c} implicit-diff sims "
+                        "produced non-finite H; pass skip_errors=True.")
+                n_dropped += int(bad.sum())
+                Hs_c, resid_c = Hs_c[~bad], resid_c[~bad]
+            result.Hs.extend(list(Hs_c))
+            resid_store.extend(list(resid_c))
+            if checkpoint_file is not None:
+                result.save(checkpoint_file)
+            pbar.step(inc=c)
+    finally:
+        pbar.close()
+    if n_dropped:
+        warnings.warn(f"get_H: dropping {n_dropped} failed sims")
 
 
 def _reduce_H(result: MuseResult, comp: CompiledProblem):

@@ -7,9 +7,12 @@ rest — score assembly, H⁻¹ estimation (sims variance or Broyden replay),
 the damped Newton step, the convergence test — is tiny dense linear
 algebra over θ on the host in float64, as the reference does it.
 
+With ``hoist_sampling`` (the default) and a problem that declares the CRN
+white split, the whites are drawn once per fit and every iteration runs
+``muse_step_white``; otherwise every iteration re-samples in ``muse_step``.
+
 Left out: ``mesh`` (ROADMAP Queue 1 item 10), ``profile_dir`` (item 13),
-``certify`` and the odd-lane padding (TPU compiler guards), and
-``hoist_sampling`` (item 3).
+and ``certify`` and the odd-lane padding (TPU compiler guards).
 """
 
 from __future__ import annotations
@@ -84,12 +87,18 @@ def muse_fit(
     max_batch: Optional[int] = None,
     dtype=torch.float32,
     compiled: Optional[CompiledProblem] = None,
+    hoist_sampling: bool = True,
 ) -> MuseResult:
     """Run/resume the MUSE iteration on ``result`` (``muse!`` analog).
 
     Arguments follow ``muse_tpu.muse_fit``; ``seed`` (an int, stored in
     ``result.key``) takes the place of the PRNG key. ``max_batch`` bounds
     the lanes of one device call; the last chunk may be smaller.
+    ``hoist_sampling``: when the problem declares the CRN white split
+    (``sample_white``/``x_of_white``), draw the θ-independent whites once
+    per fit, keeping only the parts x depends on, and run
+    ``muse_step_white`` at every iteration — the keyed path's math with the
+    RNG out of the loop. False re-samples every iteration.
     """
     if Hinv_update not in ("sims", "broyden", "diagonal_broyden"):
         raise ValueError(f"invalid Hinv_update={Hinv_update!r}")
@@ -133,6 +142,10 @@ def muse_fit(
     bounds = [(s0, min(s0 + step_sz, B)) for s0 in range(0, B, step_sz)]
     Z_chunks = [z0_flat.expand(e0 - s0, comp.nz).clone()
                 for s0, e0 in bounds]
+    use_white = bool(hoist_sampling) and problem.x_of_white is not None \
+        and problem.sample_white is not None
+    W_chunks = ([comp.sample_whites(seeds_all[s0:e0], x_only=True)
+                 for s0, e0 in bounds] if use_white else None)
 
     pbar = ProgressReporter(maxsteps - len(history), "MUSE",
                             enabled=progress)
@@ -152,9 +165,14 @@ def muse_fit(
             zhat_dat = None
             zhat_sims_parts = []
             for ci, (s0, e0) in enumerate(bounds):
-                out = comp.muse_step(th_dev, th_t_dev, seeds_all[s0:e0],
-                                     Z_chunks[ci], lane_ids[s0:e0],
-                                     grad_z_atol)
+                if use_white:
+                    out = comp.muse_step_white(th_dev, th_t_dev,
+                                               W_chunks[ci], Z_chunks[ci],
+                                               lane_ids[s0:e0], grad_z_atol)
+                else:
+                    out = comp.muse_step(th_dev, th_t_dev, seeds_all[s0:e0],
+                                         Z_chunks[ci], lane_ids[s0:e0],
+                                         grad_z_atol)
                 Z_chunks[ci] = out["Z"]
                 c = e0 - s0
                 g_parts.append(_host(out["g"]))

@@ -49,14 +49,16 @@ def problems(arrays):
     jc = pj.grf_config
     cfg = convert.grf_config_from_arrays(N, SIGMA, jc.gamma, jc.k0,
                                          np.asarray(jc.k),
-                                         np.asarray(jc.herm_weight))
-    pt = tgrf.grf_field_problem(cfg, x_obs=convert.x_obs(x_obs))
+                                         np.asarray(jc.herm_weight),
+                                         device="cpu")
+    pt = tgrf.grf_field_problem(cfg, x_obs=convert.x_obs(x_obs,
+                                                         device="cpu"))
     return pj, pt
 
 
 def test_grf_config_arrays_match_jax():
     jc = jgrf.GrfConfig(N)
-    tc = tgrf.GrfConfig(N)
+    tc = tgrf.GrfConfig(N, device="cpu")
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
     np.testing.assert_array_equal(tc.herm_weight.numpy(),
                                   np.asarray(jc.herm_weight))
@@ -67,7 +69,8 @@ def test_converted_config_matches_jax(arrays, theta):
     jc = jgrf.GrfConfig(N, sigma_noise=SIGMA)
     tc = convert.grf_config_from_arrays(N, SIGMA, jc.gamma, jc.k0,
                                         np.asarray(jc.k),
-                                        np.asarray(jc.herm_weight))
+                                        np.asarray(jc.herm_weight),
+                                        device="cpu")
     np.testing.assert_array_equal(tc.herm_weight.numpy(),
                                   np.asarray(jc.herm_weight))
     np.testing.assert_allclose(tc.spectrum(theta).numpy(),
@@ -147,7 +150,7 @@ def test_marginal_mle_matches_jax(arrays, problems):
 def test_sampler_draw_order_and_crn():
     """u first, then the noise, from the lane's own generator; the same
     seed gives the same whites at every θ."""
-    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA)
+    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA, device="cpu")
     cfg = p.grf_config
     x1, z1 = p.sample_x_z(lane_generator(5, "cpu"), 0.1)
     g = lane_generator(5, "cpu")

@@ -48,9 +48,21 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tp.spectrum_quadform_cuda(z, w)
 
 
+def test_fused_cpu_tensors_take_the_plain_version():
+    z, w = _inputs(2, 9, "cpu")
+    before = tp.spectrum_quadform_and_grad_cuda.launches
+    q, g = tp.spectrum_quadform_and_grad(z, w)
+    qp, gp = tp.spectrum_quadform_and_grad_plain(z, w)
+    assert torch.equal(q, qp) and torch.equal(g, gp)
+    assert torch.equal(g, z * w)
+    assert tp.spectrum_quadform_and_grad_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tp.spectrum_quadform_and_grad_cuda(z, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (101, 1024),
-                                 (3, 100), (3, 33)])
+                                 (128, 1024), (3, 100), (3, 33)])
 def test_kernel_matches_plain(cuda, B, n):
     z, w = _inputs(B, n, cuda)
     got = tp.spectrum_quadform_cuda(z, w)
@@ -105,3 +117,31 @@ def test_wrapper_checks(cuda):
     with pytest.raises(ValueError):
         tp.spectrum_quadform_cuda(z.transpose(1, 2).contiguous()
                                   .transpose(1, 2), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (51, 1024),
+                                 (128, 1024), (3, 100), (5, 33)])
+def test_fused_kernel_matches_plain(cuda, B, n):
+    """quad within 1e-5 relative of a float64 sum, half_grad bitwise
+    ``z * w``, and a bitwise-equal rerun (no atomics)."""
+    z, w = _inputs(B, n, cuda, seed=B + n)
+    q, g = tp.spectrum_quadform_and_grad_cuda(z, w)
+    want = tp.spectrum_quadform_plain(z.double(), w.double())
+    rel = ((q.double() - want).abs() / want.abs()).max().item()
+    assert rel <= 1e-5, rel
+    assert torch.equal(g, z * w)
+    q2, g2 = tp.spectrum_quadform_and_grad_cuda(z, w)
+    assert torch.equal(q, q2) and torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_checks_and_counts(cuda):
+    z, w = _inputs(2, 16, cuda)
+    before = tp.spectrum_quadform_and_grad_cuda.launches
+    tp.spectrum_quadform_and_grad(z, w)
+    assert tp.spectrum_quadform_and_grad_cuda.launches - before == 1
+    with pytest.raises(TypeError):
+        tp.spectrum_quadform_and_grad_cuda(z.double(), w.double())
+    with pytest.raises(ValueError):
+        tp.spectrum_quadform_and_grad_cuda(z, w[:, :-1].contiguous())

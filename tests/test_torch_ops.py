@@ -117,7 +117,32 @@ def test_pack_helpers_parseval():
     n = 16
     z = torch.from_numpy(
         np.random.default_rng(3).standard_normal((n, n)).astype(np.float32))
-    cfg = GrfConfig(n=n)
+    cfg = GrfConfig(n=n, device="cpu")
     quad = tp.spectrum_quadform(tp.pack_rfft2(z)[None],
                                 tp.pack_weights(cfg.herm_weight))[0] / n ** 2
     assert float(quad) == pytest.approx(float((z * z).sum()), rel=1e-4)
+
+
+@pytest.mark.parametrize("n", [32, 33])
+def test_quadform_and_grad_plain_matches_pallas(n):
+    """The fused value + half-gradient against muse_tpu's Pallas kernel
+    (test_pallas_grf.py:32-39 pattern) at B=3: quad at rtol 1e-5, the
+    half-gradient (one multiply per element) at rtol 1e-6."""
+    rng = np.random.default_rng(n)
+    m2 = 2 * (n // 2 + 1)
+    z = rng.standard_normal((3, n, m2)).astype(np.float32)
+    ic = (rng.uniform(size=(n, m2)) + 0.5).astype(np.float32)
+    qj, gj = jp.spectrum_quadform_and_grad(jnp.asarray(z), jnp.asarray(ic))
+    qt, gt = tp.spectrum_quadform_and_grad(torch.from_numpy(z),
+                                           torch.from_numpy(ic))
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-5)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-6)
+    # the value is the quadform of the same inputs, and 2·half_grad its
+    # z-gradient
+    np.testing.assert_allclose(
+        qt.numpy(), tp.spectrum_quadform_plain(torch.from_numpy(z),
+                                               torch.from_numpy(ic)).numpy(),
+        rtol=1e-5)
+    zt = torch.from_numpy(z).requires_grad_(True)
+    tp.spectrum_quadform_plain(zt, torch.from_numpy(ic)).sum().backward()
+    torch.testing.assert_close(2 * gt, zt.grad, rtol=1e-6, atol=1e-6)

@@ -40,7 +40,8 @@ def x_obs():
 def fits(x_obs):
     pj = jgrf.grf_field_problem(n=N, sigma_noise=SIGMA,
                                 x_obs=jnp.asarray(x_obs))
-    pt = tgrf.grf_field_problem(n=N, sigma_noise=SIGMA, x_obs=x_obs)
+    pt = tgrf.grf_field_problem(n=N, sigma_noise=SIGMA, x_obs=x_obs,
+                                device="cpu")
     rj = muse_tpu.muse(pj, 0.5, key=jax.random.PRNGKey(1), **FIT)
     rt = muse_tpu_torch.muse(pt, 0.5, seed=1, **FIT)
     mle, sig = tgrf.grf_marginal_mle(x_obs, pt.grf_config)
@@ -95,7 +96,8 @@ def test_get_H_fd_order_4_agrees_with_order_2(fits):
 
 
 def test_max_batch_chunks_give_the_same_fit():
-    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA, data_seed=3)
+    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA, data_seed=3,
+                               device="cpu")
     kw = dict(nsims=12, maxsteps=4, theta_rtol=0.0, seed=2)
     a = muse_tpu_torch.muse(p, 0.5, **kw)
     b = muse_tpu_torch.muse(p, 0.5, max_batch=5, **kw)
@@ -106,7 +108,8 @@ def test_max_batch_chunks_give_the_same_fit():
 
 
 def test_checkpoint_resume_continues_the_fit(tmp_path):
-    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA, data_seed=3)
+    p = tgrf.grf_field_problem(n=16, sigma_noise=SIGMA, data_seed=3,
+                               device="cpu")
     kw = dict(nsims=12, theta_rtol=0.0, seed=2)
     full = muse_tpu_torch.muse(p, 0.5, maxsteps=4, **kw)
     f = str(tmp_path / "ckpt.pkl")

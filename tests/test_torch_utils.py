@@ -124,13 +124,42 @@ def test_cuda_without_a_card_raises():
         grf_field_problem(n=8, device="cuda")
 
 
+def test_problem_device_defaults_to_the_card():
+    """A problem given no device and no tensor to take it from resolves
+    the card at first use; a tensor's device, or an explicit one, wins."""
+    f = lambda *a: None                                   # noqa: E731
+    p = SimpleMuseProblem(np.zeros(3), f, f)
+    if torch.cuda.is_available():
+        assert p.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            p.device
+    assert SimpleMuseProblem(torch.zeros(3), f, f).device.type == "cpu"
+    assert SimpleMuseProblem(np.zeros(3), f, f, device="cpu").device == \
+        torch.device("cpu")
+
+
 def test_paths_not_ported_yet_raise():
-    p = grf_field_problem(n=8)
+    p = grf_field_problem(n=8, device="cpu")
     res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        muse_tpu_torch.get_H(res, p, nsims=2, implicit_diff=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
     q = SimpleMuseProblem(p.x, p.sample_x_z, p.log_like)    # no custom_zhat
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         muse_tpu_torch.muse(q, 0.5, nsims=4, maxsteps=2)
+
+
+@pytest.mark.parametrize("fd_order,err", [(7, ValueError),
+                                          ("adaptive", NotImplementedError)])
+def test_get_H_checks_fd_order_first(fd_order, err):
+    """An unknown or unported fd_order raises even when the result already
+    holds every H asked for, and leaves the result as it was."""
+    p = grf_field_problem(n=8, device="cpu")
+    res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2,
+                              get_covariance=True)
+    n_H, H = len(res.Hs), res.H.copy()
+    assert n_H > 0
+    with pytest.raises(err):
+        muse_tpu_torch.get_H(res, p, nsims=n_H, fd_order=fd_order)
+    assert len(res.Hs) == n_H
+    np.testing.assert_array_equal(res.H, H)
