@@ -9,10 +9,13 @@ Entry points run on the card (``"cuda"``) unless the caller asks for the
 CPU with ``device="cpu"``.
 
 Ported so far: the full MUSE pipeline — ``muse_fit`` (keyed, or with the
-CRN whites hoisted), ``get_J``, finite-difference and implicit-diff
-``get_H``, ``finalize_result`` — on the field GRF
-(``models.grf_field_problem``, slice 1) and on the packed spectral GRF of
-the north star (``models.grf_spectral_problem``, slice 2). Both TPU
+CRN whites hoisted), ``get_J``, finite-difference (fixed or adaptive step)
+and implicit-diff ``get_H``, ``finalize_result`` — on the field GRF
+(``models.grf_field_problem``, slice 1), on the packed spectral GRF of the
+north star (``models.grf_spectral_problem``, slice 2), and on user models
+without their own latent solver (slice 3): ``SimpleMuseProblem``, the
+funnel family and the PPL (``ppl``, ``transforms``, ``distributions``),
+whose latent MAPs are the batched L-BFGS of ``ops/lbfgs.py``. Both TPU
 kernels of the JAX package have their CUDA counterparts in
 ``csrc/spectrum_quadform.cu``: the spectrum quadform (the θ-scores) and the
 fused quadform + half-gradient (the spectral GRF's PCG operator).
@@ -32,12 +35,13 @@ from .result import MuseResult, load_result  # noqa: E402
 from .solver.jacobians import get_H, get_J  # noqa: E402
 from .solver.muse import muse, muse_fit  # noqa: E402
 from .theta import ThetaSpec  # noqa: E402
-from . import distributions  # noqa: E402
+from .ppl import PPLMuseProblem, model_problem  # noqa: E402
+from . import distributions, ppl, transforms  # noqa: E402
 
 __all__ = [
     "MuseProblem", "SimpleMuseProblem", "MuseResult", "load_result", "muse",
     "muse_fit", "get_J", "get_H", "check_self_consistency", "ThetaSpec",
-    "distributions",
+    "PPLMuseProblem", "model_problem", "distributions", "ppl", "transforms",
 ]
 
 __version__ = "0.3.0"

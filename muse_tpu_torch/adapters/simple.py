@@ -19,10 +19,14 @@ Example (the reference docstring's 512-dim noisy funnel)::
         return -0.5 * (((x - z) ** 2).sum() + (z ** 2).sum() / torch.exp(theta)
                        + 512 * theta)
 
-The funnel's latent solve needs the generic L-BFGS solver, which is not
-ported yet (ROADMAP Queue 1 item 6); a problem runs today when it brings
-its own batched ``custom_zhat``. Without ``device`` the problem takes
-``x``'s device when ``x`` is a tensor, and the card otherwise.
+    x, _ = sample_x_z(torch.Generator().manual_seed(42), torch.tensor(0.0))
+    prob = SimpleMuseProblem(x, sample_x_z, log_like, lambda t: -t**2 / 18)
+    result = muse(prob, 1.0, nsims=100, theta_rtol=1e-3, get_covariance=True)
+
+Without ``custom_zhat`` the latent MAPs are the generic batched L-BFGS
+(``ops/lbfgs.py``). Without ``device`` the problem takes ``x``'s device
+when ``x`` is a tensor, and the card otherwise (here the CPU: the
+generator and x live there).
 """
 
 from __future__ import annotations

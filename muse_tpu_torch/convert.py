@@ -16,8 +16,8 @@ from .models.grf import GrfConfig, pack_field_host
 from .result import MuseResult
 from .utils.device import resolve_device
 
-__all__ = ["grf_config_from_arrays", "x_obs", "packed_x_obs",
-           "whites_from_arrays", "result_from_muse_tpu"]
+__all__ = ["grf_config_from_arrays", "x_obs", "observed", "theta",
+           "packed_x_obs", "whites_from_arrays", "result_from_muse_tpu"]
 
 
 def grf_config_from_arrays(n, sigma_noise, gamma, k0, k, herm_weight, *,
@@ -34,6 +34,20 @@ def x_obs(x, device="cuda", dtype=torch.float32) -> torch.Tensor:
     """The JAX side's observed data as a tensor on ``device``."""
     return torch.tensor(np.asarray(x), dtype=dtype,
                         device=resolve_device(device))
+
+
+def observed(obs: dict, device="cuda") -> dict:
+    """A PPL ``observed={site: value}`` dict of the JAX side as the port's
+    dict of float32 tensors on ``device``."""
+    return {k: x_obs(v, device) for k, v in obs.items()}
+
+
+def theta(th, device="cuda"):
+    """A θ of the JAX side (a scalar, an array such as a ``vector_funnel``
+    θ, or a dict of them) as float32 tensors on ``device``."""
+    if isinstance(th, dict):
+        return {k: x_obs(v, device) for k, v in th.items()}
+    return x_obs(th, device)
 
 
 def packed_x_obs(x, n: int, device="cuda") -> torch.Tensor:

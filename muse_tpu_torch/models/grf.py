@@ -271,7 +271,9 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
       * ``solver="cg"``: the batched PCG of ``ops/cg.py`` with A = 1 + C/σ²
         and M⁻¹ = 1/A; its operator and curvature (Ap, pᵀAp) come from the
         fused ``spectrum_quadform_and_grad`` kernel on a card.
-        ``"direct"``: the closed form û = √C x̃/(σ²+C).
+        ``"direct"``: the closed form û = √C x̃/(σ²+C). ``"lbfgs"``: no
+        ``custom_zhat``, so the MAPs take the generic batched L-BFGS
+        (``ops/lbfgs.py``) on the log-likelihood.
       * ``grad_theta``: the analytic score ½Σ x̃²·∂C/(C+σ²)² through the
         ``spectrum_quadform`` kernel, one launch per batched evaluation.
 
@@ -279,8 +281,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     or an already packed (L,) vector; without it the data are drawn at
     ``theta_true`` from ``data_seed``. ``prob.x_real`` holds the pixel
     field for closed-form oracles (:func:`grf_marginal_mle`).
-    ``solver="lbfgs"`` and ``mesh`` are not ported yet (ROADMAP Queue 1
-    items 6 and 10). ``config``, when given, fixes the device.
+    ``mesh`` is not ported yet (ROADMAP Queue 1 item 10). ``config``, when
+    given, fixes the device.
     """
     from ..ops.cg import batched_cg
     from ..ops.grf_spectrum import (spectrum_quadform,
@@ -289,11 +291,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     if noise not in ("marginal", "direct", "fft"):
         raise ValueError(
             f"noise must be 'marginal'|'direct'|'fft', got {noise!r}")
-    if solver == "lbfgs":
-        raise NotImplementedError(
-            "grf_spectral_problem(solver='lbfgs') needs the generic batched "
-            "L-BFGS MAP solver, not ported yet (ROADMAP Queue 1 item 6)")
-    if solver not in ("cg", "direct"):
+    if solver not in ("cg", "direct", "lbfgs"):
         raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
                          f"{solver!r}")
     if mesh is not None:
@@ -426,7 +424,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
 
     prob = SimpleMuseProblem(
         x_obs, sample_x_z, log_like, log_prior,
-        custom_zhat=zhat_cg if solver == "cg" else zhat_direct,
+        custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
+                     "lbfgs": None}[solver],
         grad_theta_log_like=grad_theta, device=dev,
         sample_white=sample_white, x_of_white=x_of_white,
         x_white_parts=(0,) if noise == "marginal" else None)

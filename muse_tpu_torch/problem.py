@@ -12,8 +12,9 @@ Counterpart of ``muse_tpu/problem.py`` (the reference's
   transform_θ / inv_transform_θ        MuseProblem.theta_bijector
   ẑ_guess_from_truth                   MuseProblem.zhat_guess_from_truth
 
-x and z are tensors on the problem's ``device``; θ is a tensor (0-d for a
-scalar θ) or a mapping of tensors. Every user function must be composable
+x and z are tensors, or pytrees of tensors (the PPL's are dicts keyed by
+site), on the problem's ``device``; θ is a tensor (0-d for a scalar θ) or
+a mapping of tensors. Every user function must be composable
 with ``torch.func`` (``grad``, ``vmap``, ``jacfwd``). The sampler takes a
 ``torch.Generator`` on the problem's device, never global RNG state.
 
@@ -29,6 +30,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from .utils.device import resolve_device
+from .utils.tree import TreeSpec, tree_map
 
 __all__ = ["MuseProblem", "check_self_consistency"]
 
@@ -41,7 +43,7 @@ class MuseProblem:
     (``src/interface.jl:20,28,120-121,134,184-186``).
     """
 
-    #: observed data (x), a tensor on ``device``.
+    #: observed data (x), a tensor or a pytree of tensors on ``device``.
     x: Any = None
 
     _device: Optional[torch.device] = None
@@ -105,7 +107,7 @@ class MuseProblem:
     def zhat_guess_from_truth(self, x, z, theta):
         """Starting guess for a simulation's MAP given its true z: ``zero(z)``
         (src/interface.jl:184-186)."""
-        return torch.zeros_like(z)
+        return tree_map(torch.zeros_like, z)
 
     def transform_theta(self, theta_flat):
         b = self.theta_bijector
@@ -149,8 +151,8 @@ def check_self_consistency(problem: MuseProblem, theta, *, seed: int = 0,
     th = torch.as_tensor(spec.flatten(theta), dtype=dtype, device=dev)
 
     x, z = problem.sample_x_z(lane_generator(seed, dev), spec.unflatten(th))
-    z_shape = z.shape
-    z_flat = z.reshape(-1).to(dtype)
+    zspec = TreeSpec(z)
+    z_flat = zspec.flatten(z).to(dtype)
     failures = []
 
     def check(name, a, b):
@@ -177,7 +179,7 @@ def check_self_consistency(problem: MuseProblem, theta, *, seed: int = 0,
 
     # 3. gradient chain rule across θ-spaces
     def ll(t, zf=z_flat):
-        return problem.log_like(x, zf.reshape(z_shape),
+        return problem.log_like(x, zspec.unflatten(zf),
                                 spec.unflatten(t)).to(dtype)
 
     def ll_t(tt):
@@ -215,6 +217,7 @@ def check_self_consistency(problem: MuseProblem, theta, *, seed: int = 0,
             W = problem.sample_white(lane_generator(seed, dev))
             xw, zw = problem.x_of_white(W, spec.unflatten(th))
             for name, a, b in (("x", x, xw), ("z", z, zw)):
+                a, b = TreeSpec(a).flatten(a), TreeSpec(b).flatten(b)
                 err = float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
                 if not err < atol:
                     failures.append(

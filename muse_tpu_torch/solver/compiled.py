@@ -24,41 +24,56 @@ ride as the lane whose global id is 0 in ``muse_step``
 kernel with a ``vmap`` rule (``ops/grf_spectrum.py``) sees every lane in
 one launch. Sampling is a loop over the lanes' generators.
 
-Not ported yet: the generic batched L-BFGS MAP solver for problems
-without ``custom_zhat`` (ROADMAP Queue 1 item 6). The
-JAX package's ``optimization_barrier`` fences, odd-lane padding and
-value certifier guard against faults of the TPU compiler and have no
-counterpart here.
+The latent MAPs of a problem without its own ``custom_zhat`` are one
+:func:`~muse_tpu_torch.ops.lbfgs.batched_lbfgs` over all lanes, on
+``vmap(grad_and_value(−log_like))``. x and z may be pytrees (the PPL's are
+dicts of tensors): z is flattened per lane by a :class:`TreeSpec`, and
+x's leaves are stacked, mixed and indexed leaf by leaf. The JAX package's
+``optimization_barrier`` fences, odd-lane padding and value certifier
+guard against faults of the TPU compiler and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import grad, hessian, jacfwd, jvp, vmap
+from torch.func import grad, grad_and_value, hessian, jacfwd, jvp, vmap
 
 from ..ops.cg import batched_cg
+from ..ops.lbfgs import batched_lbfgs
 from ..problem import MuseProblem
 from ..theta import ThetaSpec
 from ..utils.keys import lane_generator
+from ..utils.tree import TreeSpec, tree_map
 
 __all__ = ["CompiledProblem"]
 
 
+def _lane(tree, i):
+    """Lane ``i`` of a batched pytree."""
+    return tree_map(lambda v: v[i], tree)
+
+
 class CompiledProblem:
-    """Batched view of a :class:`MuseProblem` on its device."""
+    """Batched view of a :class:`MuseProblem` on its device.
+
+    ``lbfgs_memory`` and ``lbfgs_max_iters`` configure the generic MAP
+    solver (``m`` and ``max_iters`` of :func:`batched_lbfgs`)."""
 
     def __init__(self, problem: MuseProblem, spec: ThetaSpec, theta0_flat,
-                 *, dtype=torch.float32):
+                 *, dtype=torch.float32, lbfgs_memory: int = 10,
+                 lbfgs_max_iters: int = 500):
         self.problem = problem
         self.spec = spec
         self.dtype = dtype
+        self.lbfgs_memory = lbfgs_memory
+        self.lbfgs_max_iters = lbfgs_max_iters
         self.device = torch.device(problem.device)
-        # z's shape and flat size from one example draw
+        # z's structure and flat size from one example draw
         _, z0 = problem.sample_x_z(lane_generator(0, self.device),
                                    spec.unflatten(self.theta(theta0_flat)))
-        self.z_shape = tuple(z0.shape)
-        self.nz = int(z0.numel())
-        self.x_obs = problem.x.to(self.device)
+        self.zspec = TreeSpec(z0)
+        self.nz = self.zspec.n
+        self.x_obs = tree_map(lambda v: v.to(self.device), problem.x)
 
     def theta(self, th_flat) -> torch.Tensor:
         """A flat θ (numpy or tensor) on the device in the working dtype."""
@@ -70,7 +85,7 @@ class CompiledProblem:
 
     def _ll(self, x, z_flat, th_flat):
         """log P(x, z | θ), θ untransformed-flat, z flat."""
-        return self.problem.log_like(x, z_flat.reshape(self.z_shape),
+        return self.problem.log_like(x, self.zspec.unflatten(z_flat),
                                      self.spec.unflatten(th_flat)
                                      ).to(self.dtype)
 
@@ -83,18 +98,23 @@ class CompiledProblem:
     def _sample_flat(self, seed, th_flat):
         x, z = self.problem.sample_x_z(lane_generator(seed, self.device),
                                        self.spec.unflatten(th_flat))
-        return x, z.reshape(-1).to(self.dtype)
+        return x, self.zspec.flatten(z).to(self.dtype)
 
     def _sample_batch(self, seeds, th_flats):
         """Sample lane i from ``seeds[i]`` at θ ``th_flats[i]`` and stack."""
         xs, Zs = zip(*(self._sample_flat(s, t)
                        for s, t in zip(seeds, th_flats)))
-        return torch.stack(xs), torch.stack(Zs)
+        return tree_map(lambda *v: torch.stack(v), *xs), torch.stack(Zs)
 
     def _zhat_guess_flat(self, x, z_flat, th_flat):
         g = self.problem.zhat_guess_from_truth(
-            x, z_flat.reshape(self.z_shape), self.spec.unflatten(th_flat))
-        return g.reshape(-1).to(self.dtype)
+            x, self.zspec.unflatten(z_flat), self.spec.unflatten(th_flat))
+        return self.zspec.flatten(g).to(self.dtype)
+
+    def _zhat_guesses(self, xs, Zs, th_flat):
+        """:meth:`_zhat_guess_flat` of every lane, stacked."""
+        return torch.stack([self._zhat_guess_flat(_lane(xs, i), Zs[i], th_flat)
+                            for i in range(Zs.shape[0])])
 
     def _grads_th(self, xs, Z, th_flat):
         """Per-lane ∂θ log_like in untransformed space: the problem's
@@ -103,7 +123,7 @@ class CompiledProblem:
         if self.problem.grad_theta_log_like is not None:
             def one(x, z):
                 g = self.problem.grad_theta_log_like(
-                    x, z.reshape(self.z_shape), self.spec.unflatten(th_flat))
+                    x, self.zspec.unflatten(z), self.spec.unflatten(th_flat))
                 return self.spec.flatten(g).to(self.dtype)
             return vmap(one)(xs, Z)
         return vmap(lambda x, z: grad(
@@ -115,18 +135,29 @@ class CompiledProblem:
 
     def _solve_maps(self, xs, Z0, th_flat, atol):
         """All lanes' latent MAP solves → (Z, aux) with per-lane
-        diagnostics (the ``ẑ_history`` analog)."""
-        if self.problem.custom_zhat is None:
-            raise NotImplementedError(
-                "the generic batched L-BFGS MAP solver is not ported yet "
-                "(ROADMAP Queue 1 item 6); give the problem a custom_zhat")
-        Z, aux = self.problem.custom_zhat(xs, Z0, th_flat, atol)
-        B = Z.shape[0]
-        aux.setdefault("converged", torch.ones(B, dtype=torch.bool,
-                                               device=Z.device))
-        aux.setdefault("failed", torch.zeros(B, dtype=torch.bool,
-                                             device=Z.device))
-        return Z, aux
+        diagnostics (the ``ẑ_history`` analog): the problem's
+        ``custom_zhat``, else batched L-BFGS on −log_like."""
+        if self.problem.custom_zhat is not None:
+            Z, aux = self.problem.custom_zhat(xs, Z0, th_flat, atol)
+            B = Z.shape[0]
+            aux.setdefault("converged", torch.ones(B, dtype=torch.bool,
+                                                   device=Z.device))
+            aux.setdefault("failed", torch.zeros(B, dtype=torch.bool,
+                                                 device=Z.device))
+            return Z, aux
+
+        def neg_ll(x, z):
+            return -self._ll(x, z, th_flat)
+
+        def fn(Z):
+            g, f = vmap(grad_and_value(neg_ll, argnums=1))(xs, Z)
+            return f, g
+
+        res = batched_lbfgs(fn, Z0, g_atol=atol, m=self.lbfgs_memory,
+                            max_iters=self.lbfgs_max_iters)
+        return res.z, {"converged": res.converged, "failed": res.failed,
+                       "iterations": res.iterations, "g_norm": res.g_norm,
+                       "neg_logp": res.f}
 
     # ------------------------------------------------------------ #
     # entry points
@@ -135,8 +166,11 @@ class CompiledProblem:
     def _step_from_xs(self, xs_all, th, th_t, Z_prev, lane_ids, atol):
         """Muse-step tail: data-lane mix-in, batched MAP solves, per-lane
         θ-gradients in both spaces (src/muse.jl:169-181)."""
-        data = (lane_ids == 0).reshape((-1,) + (1,) * (xs_all.dim() - 1))
-        xs = torch.where(data, self.x_obs[None].to(xs_all.dtype), xs_all)
+        def mix(obs, sims):
+            data = (lane_ids == 0).reshape((-1,) + (1,) * (sims.dim() - 1))
+            return torch.where(data, obs[None].to(sims.dtype), sims)
+
+        xs = tree_map(mix, self.x_obs, xs_all)
         Z, aux = self._solve_maps(xs, Z_prev, th, atol)
         g = self._grads_th(xs, Z, th)
         if self.problem.theta_bijector is None:
@@ -189,7 +223,8 @@ class CompiledProblem:
             W = tuple(self.problem.sample_white(
                 lane_generator(s, self.device)))
             lanes.append(self._x_parts(W) if x_only else W)
-        return tuple(None if parts[0] is None else torch.stack(parts)
+        return tuple(None if parts[0] is None
+                     else tree_map(lambda *v: torch.stack(v), *parts)
                      for parts in zip(*lanes))
 
     def _xs_of_whites(self, W_all, th_flat):
@@ -228,9 +263,8 @@ class CompiledProblem:
         """get_H fiducial fits: sims at θ₀, MAP from ẑ_guess_from_truth
         (src/muse.jl:417-423)."""
         xs, Zs = self._sample_batch(seeds, [th] * len(seeds))
-        Z0 = torch.stack([self._zhat_guess_flat(x, z, th)
-                          for x, z in zip(xs, Zs)])
-        Z, aux = self._solve_maps(xs, Z0, th, atol)
+        Z, aux = self._solve_maps(xs, self._zhat_guesses(xs, Zs, th), th,
+                                  atol)
         return {"Z": Z, **aux}
 
     def h_fd(self, seeds, th, steps, Zfid, atol, offsets):
@@ -303,13 +337,12 @@ class CompiledProblem:
 
         def x_z(*W):
             x, z = self.problem.x_of_white(W, spec.unflatten(th))
-            return x, z.reshape(-1).to(self.dtype)
+            return x, self.zspec.flatten(z).to(self.dtype)
 
         xs, zs = vmap(x_z)(*W_all)
-        S = xs.shape[0]
-        z_start = torch.stack([self._zhat_guess_flat(x, z, th)
-                               for x, z in zip(xs, zs)])
-        zhat, _ = self._solve_maps(xs, z_start, th, atol)
+        S = zs.shape[0]
+        zhat, _ = self._solve_maps(xs, self._zhat_guesses(xs, zs, th), th,
+                                   atol)
 
         def grad_z(x, z, t):
             return grad(lambda z_: self._ll(x, z_, t))(z)
@@ -331,7 +364,7 @@ class CompiledProblem:
 
         # lanes = (sim, θ-column): solve A y = −dFdθ1 column by column,
         # with A = −∇z² logLike at ẑ (SPD), as an HVP
-        x_l = xs.repeat_interleave(nth, dim=0)
+        x_l = tree_map(lambda v: v.repeat_interleave(nth, dim=0), xs)
         zhat_l = zhat.repeat_interleave(nth, dim=0)
 
         def neg_hvp(V):

@@ -9,14 +9,17 @@ Counterpart of ``muse_tpu/solver/jacobians.py`` (``get_J!``, reference
     ``nsims − len(result.gs)`` new sims run, and seeds come from the
     superset-prefix ``sim_seeds`` (src/muse.jl:499-506).
   * get_H, finite differences: sims × θ-columns × stencil in one batch per
-    chunk (``CompiledProblem.h_fd``), ``fd_order`` 2 or 4. The step
-    defaults to 0.1σ estimated from ``result.gs`` (src/muse.jl:411-414).
+    chunk (``CompiledProblem.h_fd``), ``fd_order`` 2, 4 or ``"adaptive"``
+    (the 4-point stencil with up to two rounds that rebalance the step).
+    The step defaults to 0.1σ estimated from ``result.gs``
+    (src/muse.jl:411-414).
   * get_H, implicit differentiation (``implicit_diff=True``): per chunk of
     sims, ``CompiledProblem.h_implicit_with`` — jacfwd Jacobians, an HVP and
     one batched CG over sims × θ-columns (src/muse.jl:335-405). Needs the
     problem's CRN white split.
 
-Not ported yet: ``fd_order="adaptive"`` (ROADMAP Queue 1 item 5).
+Both also take a PPL model function with ``observed=`` in place of the
+problem (src/turing.jl:248-256).
 """
 
 from __future__ import annotations
@@ -33,11 +36,9 @@ from ..utils.keys import sim_seeds
 from ..utils.progress import ProgressReporter
 from .compiled import CompiledProblem
 from .covariance import finalize_result
+from .muse import _as_problem
 
 __all__ = ["get_J", "get_H", "sample_covariance"]
-
-#: gradient atol of implicit-diff get_H's fiducial MAPs (src/muse.jl:344)
-IMPLICIT_FIT_ATOL = 1e-1
 
 
 def sample_covariance(gs: np.ndarray) -> np.ndarray:
@@ -86,6 +87,7 @@ def get_J(
     progress: bool = False,
     warn_reuse: bool = True,
     checkpoint_file: Optional[str] = None,
+    observed=None,
 ) -> MuseResult:
     """Monte-Carlo covariance of MAP score gradients at θ₀ (``get_J!``).
 
@@ -93,7 +95,9 @@ def get_J(
     scores stored by ``muse_fit`` (src/muse.jl:231) — count toward
     ``nsims``; only the remainder is simulated. Scores are appended per
     device chunk, and ``checkpoint_file`` saves the result after each.
+    ``problem`` may be a PPL model function with ``observed=``.
     """
+    problem = _as_problem(problem, theta0, observed, "get_J")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
                                   compiled)
     nsims_existing = len(result.gs)
@@ -210,38 +214,49 @@ def get_H(
     implicit_diff_cg_maxiter: int = 100,
     implicit_diff_cg_tol: float = 1e-6,
     implicit_diff_precond=None,
+    implicit_fit_atol: float = 1e-1,
     max_batch=None,
     dtype=torch.float32,
     compiled: Optional[CompiledProblem] = None,
     progress: bool = False,
     checkpoint_file: Optional[str] = None,
+    observed=None,
 ) -> MuseResult:
     """Mean Jacobian of the MAP score wrt the sim-generation θ (``get_H!``).
 
     Finite differences: ``fd_order=2`` central differences, ``fd_order=4``
-    the 5-point Richardson stencil. ``implicit_diff=True``: the exact
-    implicit-function estimator, with the fiducial MAPs at the reference's
-    coarse atol 1e-1 (src/muse.jl:344) and the A⁻¹ columns by CG at
+    the 5-point Richardson stencil. ``fd_order="adaptive"`` plays the role
+    of the reference's adaptive ``central_fdm(3,1)`` (src/muse.jl:300): it
+    runs the 4-offset stencil, estimates per θ-column the truncation error
+    from the ε-vs-2ε discrepancy and the float32 roundoff floor from the
+    score's scale, rebalances the step ε* = ε·(round/trunc)^⅓ (clipped to
+    [0.05, 20]) and runs again, at most three rounds in all, until the two
+    are within 10× of each other. The fiducial MAPs of round 1 are reused;
+    each round's steps and estimates land in
+    ``result.metadata["fd_adaptive"]``, and Hs land once, after the last
+    round.
+
+    ``implicit_diff=True``: the exact implicit-function estimator, with the
+    fiducial MAPs at ``implicit_fit_atol`` (the reference's coarse 1e-1,
+    src/muse.jl:344) and the A⁻¹ columns by CG at
     ``implicit_diff_cg_tol``/``implicit_diff_cg_maxiter``, preconditioned
     by ``implicit_diff_precond(w, x, θ_flat)`` (the ``Pl`` hook,
     src/muse.jl:312); the per-column CG residuals land in
-    ``result.metadata["implicit_diff_cg_resid"]``. Per-sim Jacobians land
-    in ``result.Hs`` per device chunk (``result.Hs`` counts toward
-    ``nsims``, src/muse.jl:317-319)."""
+    ``result.metadata["implicit_diff_cg_resid"]``. Otherwise per-sim
+    Jacobians land in ``result.Hs`` per device chunk (``result.Hs`` counts
+    toward ``nsims``, src/muse.jl:317-319). ``problem`` may be a PPL model
+    function with ``observed=``."""
     if not implicit_diff:
-        if fd_order == "adaptive":
-            raise NotImplementedError(
-                "adaptive finite differences are not ported yet (ROADMAP "
-                "Queue 1 item 5)")
         if fd_order == 2:
             offsets = np.array([1.0, -1.0])
             weights = np.array([0.5, -0.5])
-        elif fd_order == 4:
+        elif fd_order == 4 or fd_order == "adaptive":
             offsets = np.array([1.0, -1.0, 2.0, -2.0])
             weights = np.array([8.0, -8.0, -1.0, 1.0]) / 12.0
         else:
-            raise ValueError("fd_order must be 2 or 4")
+            raise ValueError("fd_order must be 2, 4 or 'adaptive'")
 
+    problem = _as_problem(problem, theta0, observed, "get_H")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
                                   compiled)
     ntheta = th.shape[0]
@@ -255,7 +270,7 @@ def get_H(
     th_dev = comp.theta(th)
 
     if implicit_diff:
-        _implicit_H(result, comp, seeds, th_dev, IMPLICIT_FIT_ATOL,
+        _implicit_H(result, comp, seeds, th_dev, implicit_fit_atol,
                     implicit_diff_cg_maxiter, implicit_diff_cg_tol,
                     implicit_diff_H1_is_zero, implicit_diff_precond,
                     skip_errors, max_batch, progress, checkpoint_file)
@@ -272,7 +287,7 @@ def get_H(
     step = np.array(np.broadcast_to(np.asarray(step, np.float64),
                                     (ntheta,)))
 
-    def to_Hs(g, failed):
+    def to_Hs(g, failed, step_used):
         # stale-stencil guard: bitwise-identical ±ε gradients mean the
         # perturbed MAP re-solves never moved ẑ, so H entries that flow
         # only through ẑ are exactly zero
@@ -287,7 +302,7 @@ def get_H(
                 "only through ẑ are exactly zero and σθ will be wrong. "
                 "Tighten grad_z_atol (e.g. 1e-4).")
         # H_sim[i,j] = d g_i / d θsim_j (columns = perturbed θ component)
-        Hs = np.einsum("njsi,s->nji", g, weights) / step[None, :, None]
+        Hs = np.einsum("njsi,s->nji", g, weights) / step_used[None, :, None]
         Hs = np.swapaxes(Hs, 1, 2)       # → (n, nθ rows, nθ cols)
         bad = failed | ~np.isfinite(Hs).all(axis=(1, 2))
         if bad.any() and not skip_errors:
@@ -296,25 +311,84 @@ def get_H(
                 "pass skip_errors=True to drop them.")
         return Hs[~bad], int(bad.sum())
 
-    n_dropped = 0
-    pbar = ProgressReporter(nsims_remaining * (1 + ntheta * len(offsets)),
-                            "get_H", enabled=progress)
-    try:
-        for chunk in _seed_chunks(seeds, max_batch):
+    adaptive = fd_order == "adaptive"
+    n_fd = ntheta * len(offsets)
+    pbar = ProgressReporter(nsims_remaining * (1 + n_fd), "get_H",
+                            enabled=progress)
+    # the fiducial MAPs do not depend on the step: later adaptive rounds
+    # reuse round 1's, chunk by chunk
+    fid = []
+
+    def fd_pass(step_now, commit=None):
+        """One stencil pass over every chunk of sims. ``commit(g_c,
+        failed_c)`` takes each chunk as it completes; without it the pass
+        returns every chunk's g and failed flags, concatenated."""
+        g_parts, failed_parts = [], []
+        for ci, chunk in enumerate(_seed_chunks(seeds, max_batch)):
             c = len(chunk)
-            # fiducial fits: warm starts for every FD evaluation
-            # (src/muse.jl:417-423; each sim uses its own seed)
-            Zfid = comp.h_fiducial(chunk, th_dev, grad_z_atol)["Z"]
-            pbar.step(inc=c, msg="fiducial fits")
-            out = comp.h_fd(chunk, th_dev, step, Zfid, grad_z_atol, offsets)
+            if ci < len(fid):
+                Zfid = fid[ci]
+            else:
+                # warm starts for every FD evaluation (src/muse.jl:417-423;
+                # each sim uses its own seed)
+                Zfid = comp.h_fiducial(chunk, th_dev, grad_z_atol)["Z"]
+                if adaptive:
+                    fid.append(Zfid)
+                pbar.step(inc=c, msg="fiducial fits")
+            out = comp.h_fd(chunk, th_dev, step_now, Zfid, grad_z_atol,
+                            offsets)
             g_c = out["g"].detach().cpu().numpy().astype(np.float64)
             failed_c = out["failed"].cpu().numpy().any(axis=(1, 2))
-            Hs_c, dropped = to_Hs(g_c, failed_c)
-            n_dropped += dropped
-            result.Hs.extend(list(Hs_c))
+            if commit is not None:
+                commit(g_c, failed_c)
+            else:
+                g_parts.append(g_c)
+                failed_parts.append(failed_c)
+            pbar.step(inc=c * n_fd, msg="FD columns")
+        if commit is None:
+            return np.concatenate(g_parts), np.concatenate(failed_parts)
+
+    n_dropped = 0
+    try:
+        if not adaptive:
+            # a fixed step makes each chunk's Hs final: commit them at once
+            def commit(g_c, failed_c):
+                nonlocal n_dropped
+                Hs_c, dropped = to_Hs(g_c, failed_c, step)
+                n_dropped += dropped
+                result.Hs.extend(list(Hs_c))
+                if checkpoint_file is not None:
+                    result.save(checkpoint_file)
+
+            fd_pass(step, commit)
+        else:
+            rounds = []
+            for round_i in range(3):
+                if round_i:
+                    pbar.grow(nsims_remaining * n_fd)
+                step_used = step.copy()
+                g, failed = fd_pass(step)        # (nsims, nθ, 4, nθ)
+                # per-column error balance: truncation of the ε estimate ≈
+                # |d_ε − d_2ε|/3, roundoff ≈ eps_f32·scale(g)/ε; c·ε² = δ/ε
+                # balances at ε* = ε·(round/trunc)^(1/3)
+                d_e = (g[:, :, 0, :] - g[:, :, 1, :]) / (
+                    2 * step[None, :, None])
+                d_2e = (g[:, :, 2, :] - g[:, :, 3, :]) / (
+                    4 * step[None, :, None])
+                trunc = np.sqrt(np.mean((d_e - d_2e) ** 2, axis=(0, 2))) / 3
+                g_scale = np.sqrt(np.mean(g ** 2, axis=(0, 2, 3)))
+                roundoff = np.finfo(np.float32).eps * g_scale / step
+                ratio = roundoff / np.maximum(trunc, 1e-300)
+                rounds.append({"step": step.copy(), "trunc": trunc,
+                               "roundoff": roundoff})
+                if np.all((ratio > 0.1) & (ratio < 10.0)):
+                    break                        # balanced within 10×
+                step = step * np.clip(ratio ** (1.0 / 3.0), 0.05, 20.0)
+            result.metadata["fd_adaptive"] = rounds
+            Hs, n_dropped = to_Hs(g, failed, step_used)
+            result.Hs.extend(list(Hs))
             if checkpoint_file is not None:
                 result.save(checkpoint_file)
-            pbar.step(inc=c * ntheta * len(offsets), msg="FD columns")
     finally:
         pbar.close()
     if n_dropped:

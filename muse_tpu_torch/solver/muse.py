@@ -30,6 +30,7 @@ from ..result import MuseResult
 from ..theta import ThetaSpec
 from ..utils.keys import dummy_seed, sim_seeds
 from ..utils.progress import ProgressReporter
+from ..utils.tree import tree_map
 from .compiled import CompiledProblem
 
 __all__ = ["muse", "muse_fit"]
@@ -39,9 +40,33 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
 
-def muse(problem: MuseProblem, theta0, **kwargs) -> MuseResult:
-    """One-shot MUSE estimate (``muse`` wrapper, src/muse.jl:107)."""
+def muse(problem: MuseProblem, theta0, *, observed=None,
+         **kwargs) -> MuseResult:
+    """One-shot MUSE estimate (``muse`` wrapper, src/muse.jl:107).
+
+    ``problem`` may also be a PPL model function with ``observed={site:
+    value}`` (``muse!(result, model, θ₀)``, src/turing.jl:248-256); its
+    hyper sites are the keys of ``theta0`` (``ppl.model_problem``)."""
+    problem = _as_problem(problem, theta0, observed, "muse")
     return muse_fit(MuseResult(), problem, theta0, **kwargs)
+
+
+def _as_problem(problem, theta0, observed, who: str):
+    """A PPL model function with ``observed=`` as its
+    :class:`~muse_tpu_torch.ppl.PPLMuseProblem`, a problem as it is."""
+    if callable(problem) and not isinstance(problem, MuseProblem):
+        if observed is None:
+            raise ValueError(
+                f"{who} on a model function needs observed={{site: value}} "
+                "to condition the model (the `model | (;x)` analog)")
+        if theta0 is None:
+            raise ValueError(f"{who} on a model function needs θ₀ (its "
+                             "hyper sites are inferred from its keys)")
+        from ..ppl import model_problem
+        return model_problem(problem, theta0, observed=observed)
+    if observed is not None:
+        raise ValueError("observed= is only valid with a model function")
+    return problem
 
 
 def resolve_spec(result: MuseResult, theta_start, dtype) -> ThetaSpec:
@@ -88,6 +113,7 @@ def muse_fit(
     dtype=torch.float32,
     compiled: Optional[CompiledProblem] = None,
     hoist_sampling: bool = True,
+    observed=None,
 ) -> MuseResult:
     """Run/resume the MUSE iteration on ``result`` (``muse!`` analog).
 
@@ -98,8 +124,11 @@ def muse_fit(
     (``sample_white``/``x_of_white``), draw the θ-independent whites once
     per fit, keeping only the parts x depends on, and run
     ``muse_step_white`` at every iteration — the keyed path's math with the
-    RNG out of the loop. False re-samples every iteration.
+    RNG out of the loop. False re-samples every iteration. ``problem`` may
+    be a PPL model function with ``observed=``, as in :func:`muse`.
     """
+    problem = _as_problem(problem, theta0 if theta0 is not None
+                          else result.theta_struct, observed, "muse_fit")
     if Hinv_update not in ("sims", "broyden", "diagonal_broyden"):
         raise ValueError(f"invalid Hinv_update={Hinv_update!r}")
 
@@ -133,7 +162,8 @@ def muse_fit(
     lane_ids = torch.arange(B, device=dev)
 
     if z0 is not None:
-        z0_flat = torch.as_tensor(z0, dtype=dtype, device=dev).reshape(-1)
+        z0_flat = comp.zspec.flatten(tree_map(
+            lambda v: torch.as_tensor(v, dtype=dtype, device=dev), z0))
     else:
         z0_flat = torch.zeros(comp.nz, dtype=dtype, device=dev)
 

@@ -67,7 +67,9 @@ class ThetaSpec:
                    names=tuple(names), dtype=dtype)
 
     def _leaves(self, theta):
-        if self.fields[0][0] is None:
+        # a θ that is not a mapping is already flat (e.g. result.theta), as
+        # JAX's ravel_pytree takes it
+        if self.fields[0][0] is None or not isinstance(theta, Mapping):
             return [theta]
         return [theta[name] for name, _ in self.fields]
 

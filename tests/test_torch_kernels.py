@@ -14,6 +14,7 @@ import torch
 from torch.func import grad, vmap
 
 from muse_tpu_torch.ops import grf_spectrum as tp
+from muse_tpu_torch.ops.lbfgs import batched_lbfgs
 
 torch.set_num_threads(1)
 
@@ -145,3 +146,32 @@ def test_fused_wrapper_checks_and_counts(cuda):
         tp.spectrum_quadform_and_grad_cuda(z.double(), w.double())
     with pytest.raises(ValueError):
         tp.spectrum_quadform_and_grad_cuda(z, w[:, :-1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(7, 4096), (101, 33)])
+def test_batched_lbfgs_on_the_card_matches_the_cpu(cuda, B, N):
+    """The same stiff per-lane quadratics solved on the card and on the CPU:
+    the same flags, z within the g_atol scale, iterations within ±2 (sums
+    round in another order on the card)."""
+    g = np.random.default_rng(B)
+    c = g.standard_normal((B, N)).astype(np.float32)
+    diag = np.float32(g.uniform(1.0, 100.0, (B, N)))
+    out = {}
+    for dev in ("cpu", cuda):
+        ct, dt = torch.tensor(c, device=dev), torch.tensor(diag, device=dev)
+
+        def fn(z):
+            d = z - ct
+            return 0.5 * torch.sum(dt * d * d, -1), dt * d
+
+        out[str(dev)] = batched_lbfgs(fn, torch.zeros((B, N), device=dev),
+                                      g_atol=1e-3)
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert torch.equal(card.converged.cpu(), cpu.converged)
+    assert torch.equal(card.failed.cpu(), cpu.failed)
+    assert bool(cpu.converged.all())
+    di = (card.iterations.cpu().long() - cpu.iterations.long()).abs()
+    assert int(di.max()) <= 2
+    # |z − c| < g_atol/diag ≤ 1e-3 on both sides
+    torch.testing.assert_close(card.z.cpu(), cpu.z, rtol=0, atol=2e-3)

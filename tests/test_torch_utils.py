@@ -14,7 +14,8 @@ from muse_tpu.theta import ThetaSpec as JSpec
 import muse_tpu_torch
 from muse_tpu_torch import MuseResult, SimpleMuseProblem, ThetaSpec
 from muse_tpu_torch.distributions import MvNormal, Normal
-from muse_tpu_torch.models import grf_field_problem
+from muse_tpu_torch.models import grf_field_problem, grf_spectral_problem
+from muse_tpu_torch.solver import CompiledProblem
 from muse_tpu_torch.utils import (dummy_seed, lane_generator, resolve_device,
                                   sim_seeds)
 
@@ -140,26 +141,38 @@ def test_problem_device_defaults_to_the_card():
 
 
 def test_paths_not_ported_yet_raise():
+    """Adaptive FD get_H and a problem without custom_zhat (the generic
+    L-BFGS MAPs) run now; the paths still queued raise and say where they
+    stand in the ROADMAP."""
     p = grf_field_problem(n=8, device="cpu")
     res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
+    muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
+    assert len(res.Hs) == 2 and res.metadata["fd_adaptive"]
     q = SimpleMuseProblem(p.x, p.sample_x_z, p.log_like)    # no custom_zhat
+    r = muse_tpu_torch.muse(q, 0.5, nsims=4, maxsteps=2)
+    assert r.history[0]["map_iterations"].max() > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        muse_tpu_torch.muse(q, 0.5, nsims=4, maxsteps=2)
+        grf_spectral_problem(n=8, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CompiledProblem(p, ThetaSpec.from_example(0.5),
+                        np.array([0.5])).certifier
 
 
 @pytest.mark.parametrize("fd_order,err", [(7, ValueError),
-                                          ("adaptive", NotImplementedError)])
+                                          ("adaptive", None)])
 def test_get_H_checks_fd_order_first(fd_order, err):
-    """An unknown or unported fd_order raises even when the result already
-    holds every H asked for, and leaves the result as it was."""
+    """An unknown fd_order raises even when the result already holds every
+    H asked for; a known one (adaptive included) returns. Either way the
+    result is left as it was."""
     p = grf_field_problem(n=8, device="cpu")
     res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2,
                               get_covariance=True)
     n_H, H = len(res.Hs), res.H.copy()
     assert n_H > 0
-    with pytest.raises(err):
+    if err is None:
         muse_tpu_torch.get_H(res, p, nsims=n_H, fd_order=fd_order)
+    else:
+        with pytest.raises(err):
+            muse_tpu_torch.get_H(res, p, nsims=n_H, fd_order=fd_order)
     assert len(res.Hs) == n_H
     np.testing.assert_array_equal(res.H, H)
