@@ -15,7 +15,12 @@ and implicit-diff ``get_H``, ``finalize_result`` — on the field GRF
 north star (``models.grf_spectral_problem``, slice 2), and on user models
 without their own latent solver (slice 3): ``SimpleMuseProblem``, the
 funnel family and the PPL (``ppl``, ``transforms``, ``distributions``),
-whose latent MAPs are the batched L-BFGS of ``ops/lbfgs.py``. Both TPU
+whose latent MAPs are the batched L-BFGS of ``ops/lbfgs.py``. Slice 4
+adds the remaining field-model families: the lensing model
+(``models.lensing_problem``) with its batched variable projection
+(``ops/varpro.py``) and trust-region Newton-CG (``ops/newton_cg.py``), the
+bandpower model with a vector θ (``models.bandpower_problem``) and the
+pixel-space whitened GRF (``models.grf_problem``). Both TPU
 kernels of the JAX package have their CUDA counterparts in
 ``csrc/spectrum_quadform.cu``: the spectrum quadform (the θ-scores) and the
 fused quadform + half-gradient (the spectral GRF's PCG operator).

@@ -16,7 +16,7 @@ from .models.grf import GrfConfig, pack_field_host
 from .result import MuseResult
 from .utils.device import resolve_device
 
-__all__ = ["grf_config_from_arrays", "x_obs", "observed", "theta",
+__all__ = ["grf_config_from_arrays", "x_obs", "observed", "theta", "latent",
            "packed_x_obs", "whites_from_arrays", "result_from_muse_tpu"]
 
 
@@ -50,6 +50,16 @@ def theta(th, device="cuda"):
     return x_obs(th, device)
 
 
+def latent(z, device="cuda"):
+    """A latent of the JAX side (an array, or a dict of arrays such as the
+    lensing model's ``{"uphi", "uz"}`` or its ``suggested_z0``) as float32
+    tensors on ``device``. Dict keys flatten in sorted order in both
+    packages, so the flat layouts agree."""
+    if isinstance(z, dict):
+        return {k: x_obs(v, device) for k, v in z.items()}
+    return x_obs(z, device)
+
+
 def packed_x_obs(x, n: int, device="cuda") -> torch.Tensor:
     """A real (n, n) field packed as ``grf_spectral_problem`` carries its
     data, pack(√w/n · rfft2(x)), on the host in float64 (muse_tpu
@@ -62,12 +72,16 @@ def packed_x_obs(x, n: int, device="cuda") -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def whites_from_arrays(w1, w2, device="cuda") -> tuple:
-    """The whites of ``muse_tpu``'s ``comp.sample_whites(keys)`` (two
-    (B, L) arrays for the packed GRF) as the port's ``W_all`` tuple."""
+def whites_from_arrays(*whites, device="cuda") -> tuple:
+    """The whites of ``muse_tpu``'s ``comp.sample_whites(keys)``, one array
+    per part (two (B, L) arrays for the packed GRF and the bandpower model,
+    two (B, n, n) for the pixel GRF, three for the lensing model), as the
+    port's ``W_all`` tuple."""
+    if not whites:
+        raise ValueError("whites_from_arrays needs at least one part")
     dev = resolve_device(device)
     return tuple(torch.tensor(np.asarray(w), dtype=torch.float32, device=dev)
-                 for w in (w1, w2))
+                 for w in whites)
 
 
 def result_from_muse_tpu(filename: str) -> MuseResult:

@@ -2,10 +2,9 @@
 
 Counterpart of ``muse_tpu/models/grf.py``'s hermitian white sampler
 (grf.py:46-107), ``GrfConfig`` (the ``"fft"`` transform mode;
-grf.py:110-173), ``grf_spectral_problem`` (grf.py:416-662),
-``grf_field_problem`` (grf.py:665-738) and ``grf_marginal_mle``
-(grf.py:741-805). The pixel-space whitened ``grf_problem`` is not ported
-yet (ROADMAP Queue 1 item 11).
+grf.py:110-173), ``grf_problem`` (grf.py:176-413),
+``grf_spectral_problem`` (grf.py:416-662), ``grf_field_problem``
+(grf.py:665-738) and ``grf_marginal_mle`` (grf.py:741-805).
 
 ``grf_field_problem`` infers the log-amplitude θ of the power spectrum
 C_k(θ) = e^θ (k+k0)^(−γ) of a 2D field z from x = z + σ·noise. Its latent
@@ -13,6 +12,11 @@ IS the field, and its log-likelihood's Fourier-space term
 Σ_k w_k|ẑ_k|²/C_k runs in the hand-written CUDA kernel of
 ``ops/grf_spectrum.py`` on a card. The MAP is the Wiener filter
 ẑ_k = C x̂_k/(C+σ²), batched over lanes.
+
+``grf_problem`` is the same model with the WHITE field u as its latent,
+z = S_θ u, in pixel space: its MAP enters and leaves the packed-spectral
+PCG through cuFFT, and its analytic θ-score ½Σ w|x̂|²·∂C/(C+σ²)²/n² is one
+``spectrum_quadform`` launch per batched evaluation.
 
 ``grf_spectral_problem`` carries x and the white latent in the isometric
 packing ṽ = pack(√w/n · rfft2(v)), where every operator is diagonal: its
@@ -38,8 +42,9 @@ from ..adapters.simple import SimpleMuseProblem
 from ..utils.device import resolve_device
 from ..utils.keys import lane_generator
 
-__all__ = ["GrfConfig", "grf_field_problem", "grf_spectral_problem",
-           "grf_marginal_mle", "hermitian_white_packed", "pack_field_host"]
+__all__ = ["GrfConfig", "grf_problem", "grf_field_problem",
+           "grf_spectral_problem", "grf_marginal_mle",
+           "hermitian_white_packed", "pack_field_host"]
 
 
 def _host(a) -> np.ndarray:
@@ -120,6 +125,56 @@ def pack_field_host(x, herm_weight, n: int) -> np.ndarray:
                            xf.imag.reshape(-1)]).astype(np.float32)
 
 
+def _pack_spectrum(zf: torch.Tensor, sqw_n: torch.Tensor) -> torch.Tensor:
+    """(…, n, m) complex half-spectrum → (…, 2·n·m) real, scaled by the
+    isometric pack scale ``sqw_n`` = √w/n: [real; imag], each flattened."""
+    zs = zf * sqw_n
+    return torch.cat([zs.real.flatten(-2), zs.imag.flatten(-2)], -1)
+
+
+def _unpack_spectrum(zt: torch.Tensor, sqw_n: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_pack_spectrum`."""
+    re, im = zt.chunk(2, -1)
+    return torch.complex(re, im).reshape(zt.shape[:-1] + sqw_n.shape) / sqw_n
+
+
+def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None):
+    """Batched PCG on the diagonal system A·z = b in packed coordinates,
+    preconditioned by the exact inverse 1/A. ``A`` is (1, L), ``b`` and the
+    warm start ``Z0`` are (B, L), and ``grid`` = (n, 2m) is the kernels'
+    view of a packed (L,). The operator and the curvature (Ap, pᵀAp) of
+    every step come from one ``spectrum_quadform_and_grad`` call: the fused
+    kernel on a card. Returns (the (B, L) solution, the MAP solver's aux
+    dict).
+
+    The CG residual r = b − Az is −∇z(−log_like) exactly, so the stop
+    follows the solver-wide ∇z tolerance, an ABSOLUTE gradient norm:
+    ``atol``·√nz (the L∞→L2 envelope; ``nz`` is the latent's length, L
+    unless the caller's latent lives in pixels) over ‖b‖ is the per-lane
+    relative tolerance that ``batched_cg`` takes."""
+    from ..ops.cg import batched_cg
+    from ..ops.grf_spectrum import spectrum_quadform_and_grad
+
+    A_grid = A.reshape(grid)
+    r0 = b - A * Z0
+    b_norm = torch.linalg.vector_norm(b, dim=-1)
+    rel_tol = atol * float(np.sqrt(np.float32(nz or Z0.shape[1]))) / \
+        torch.clamp(b_norm, min=1e-30)
+
+    def matvec_and_curvature(P):
+        quad, half = spectrum_quadform_and_grad(
+            P.reshape((P.shape[0],) + grid), A_grid)
+        return half.reshape(P.shape), quad
+
+    res = batched_cg(None, None, Z0, tol=rel_tol, maxiter=cg_maxiter,
+                     precond=lambda R: R / A, r0=r0, z0=r0 / A,
+                     b_norm=b_norm,
+                     matvec_and_curvature=matvec_and_curvature)
+    return res.x, {"converged": res.converged,
+                   "failed": ~torch.isfinite(res.r_norm),
+                   "iterations": res.iterations, "g_norm": res.r_norm}
+
+
 class GrfConfig:
     """Static configuration for a GRF amplitude(/tilt) problem.
 
@@ -179,6 +234,183 @@ class GrfConfig:
     def apply_sqrtC(self, u, theta):
         """z = S_θ u = F⁻¹(√C_k · F u) — real symmetric operator."""
         return self.irfft2(torch.sqrt(self.spectrum(theta)) * self.rfft2(u))
+
+    def apply_C(self, u, theta):
+        """F⁻¹(C_k · F u): the field covariance applied to u."""
+        return self.irfft2(self.spectrum(theta) * self.rfft2(u))
+
+
+def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
+                sigma_noise: float = 1.0, gamma: float = 2.0,
+                k0: float = 1.0, infer_tilt: bool = False,
+                theta_true=None, data_seed: int = 42, x_obs=None,
+                solver: str = "cg", cg_maxiter: int = 200,
+                prior_std: float = 3.0, mesh=None,
+                fft_mode: str = "auto", device="cuda") -> SimpleMuseProblem:
+    """The whitened GRF in pixel space: the latent is the white field
+    u ~ N(0, I), z = S_θ u, x = z + σ·noise.
+
+    Counterpart of muse_tpu's ``grf_problem`` (grf.py:176-413). The latent
+    Hessian is I + S_θᵀS_θ/σ², of bounded condition number.
+
+      * ``solver="cg"`` (default): the batched PCG in packed-spectral
+        coordinates, where the normal-equation operator A = 1 + C/σ² is
+        diagonal. The only transforms of a solve are ``rfft2`` of x and of
+        the warm start at entry and one ``irfft2`` at exit; every CG step
+        is one launch of the fused ``spectrum_quadform_and_grad`` kernel
+        on a card. ``"direct"``: the Fourier-diagonal closed form
+        û = √C x̂/(σ²+C). ``"lbfgs"``: no ``custom_zhat``, so the MAPs take
+        the generic batched L-BFGS on the log-likelihood.
+      * ``grad_theta``: the analytic score at the exact MAP, the
+        cancellation-free sum ½ Σ w p ∂C/(C+σ²)², p = |x̂|²/n², through the
+        ``spectrum_quadform`` kernel: one launch per batched evaluation and
+        θ component.
+      * ``fft_mode``: ``"auto"`` and ``"fft"`` are ``torch.fft``. The
+        einsum DFT (``"matmul"``) exists in the JAX package for sharded
+        layouts that XLA's FFT rejects and is not ported (ROADMAP, "Left
+        out on purpose"). ``mesh`` is not ported yet (ROADMAP Queue 1 item
+        10).
+
+    ``x_obs`` (an (n, n) array or tensor) is the data; without it the data
+    are drawn at ``theta_true`` from ``data_seed``. ``config``, when given,
+    fixes the device.
+    """
+    from ..ops.grf_spectrum import (pack_rfft2, pack_weights,
+                                    spectrum_quadform)
+
+    if solver not in ("cg", "direct", "lbfgs"):
+        raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
+                         f"{solver!r}")
+    if fft_mode not in ("auto", "fft", "matmul"):
+        raise ValueError(f"fft_mode must be 'auto'|'fft'|'matmul', got "
+                         f"{fft_mode!r}")
+    if fft_mode == "matmul":
+        raise NotImplementedError(
+            "grf_problem(fft_mode='matmul'): the einsum DFT guards a fault "
+            "of XLA's FFT under sharding and is left out of the port "
+            "(ROADMAP, 'Left out on purpose')")
+    if mesh is not None:
+        raise NotImplementedError(
+            "grf_problem(mesh=...) is not ported yet (ROADMAP Queue 1 item "
+            "10)")
+    cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
+                              device=device)
+    n = cfg.n
+    s2 = cfg.sigma_noise ** 2
+    dev = cfg.device
+    nr = n // 2 + 1
+    grid = (n, 2 * nr)       # the kernels' (n, 2m) view of a packed (L,)
+    sqw_n = torch.sqrt(cfg.herm_weight) / n   # isometric pack scale
+    neg_logk = -torch.log(cfg.k + cfg.k0)
+
+    # CRN white split (problem.py): the pixel whites are θ-independent, so
+    # the muse loop hoists the RNG out of the outer iteration (the
+    # θ-dependent √C scaling stays)
+    def sample_white(gen):
+        return (torch.randn((n, n), generator=gen, device=dev),
+                torch.randn((n, n), generator=gen, device=dev))
+
+    def x_of_white(W, theta):
+        u, e = W
+        return cfg.apply_sqrtC(u, theta) + cfg.sigma_noise * e, u
+
+    def sample_x_z(gen, theta):
+        return x_of_white(sample_white(gen), theta)
+
+    def log_like(x, u, theta):
+        r = x - cfg.apply_sqrtC(u, theta)
+        return -0.5 * (torch.sum(r * r) / s2 + torch.sum(u * u))
+
+    def log_prior(theta):
+        th = torch.atleast_1d(cfg.theta_tensor(theta))
+        return -torch.sum(th ** 2) / (2 * prior_std ** 2)
+
+    def grad_theta(x, u, theta):
+        """Analytic ∂θ log_like in Fourier space (the ∇θ_logLike override).
+
+        Per rfft mode, with r̂ = x̂ − √C û and p = |x̂|²/n²:
+          g_α = ½/σ² Σ w Re[r̂·conj(∂_α√C·û)]/n²
+        which AT THE EXACT MAP û = √C x̂/(C+σ²) collapses to the
+        cancellation-free, all-positive form
+          g_α = ½ Σ w p ∂_αC/(C+σ²)²      (∂C/∂θ₀ = C; ∂C/∂θ₁ = −log(k+k₀)C).
+        At high SNR (σ² ≪ C) the real-space product rᵀSu/σ² loses the
+        residual's significant bits to float32 FFT rounding; this form has
+        a per-mode relative error ~eps. It assumes that the latent solve
+        reached the Wiener MAP (exact for ``solver="direct"``, to the
+        solver's tolerance for ``"cg"``)."""
+        C = cfg.spectrum(theta)
+        wq = cfg.herm_weight * C / ((C + s2) ** 2 * (n * n))
+        z = pack_rfft2(x)[None]
+        g0 = 0.5 * spectrum_quadform(z, pack_weights(wq))[0]
+        if not cfg.infer_tilt:
+            scalar = (theta.dim() if isinstance(theta, torch.Tensor)
+                      else np.ndim(theta)) == 0
+            return g0 if scalar else g0.reshape(1)
+        g1 = 0.5 * spectrum_quadform(z, pack_weights(neg_logk * wq))[0]
+        return torch.stack([g0, g1])
+
+    # batched MAP solvers over the whitened latent; the normal equations
+    # are (I + S_θᵀS_θ/σ²) u = S_θᵀ x / σ², with S_θᵀS_θ = C_k
+
+    def _theta_of(th_flat):
+        return th_flat if cfg.infer_tilt else th_flat[0]
+
+    def zhat_cg(xs, Z0, th_flat, atol):
+        """Batched PCG in PACKED-SPECTRAL coordinates.
+
+        A = I + SᵀS/σ² is exactly diagonal per Fourier mode, so the CG runs
+        on the isometric packing ũ = pack(√w/n · rfft2(u)) (Parseval with
+        hermitian column weights). CG in exact arithmetic is invariant
+        under an isometric change of basis, and the packed residual norm
+        equals the pixel-space gradient norm, so the stopping semantics
+        are those of a pixel-space CG. The diagonal operator keeps the
+        hermitian-consistent subspace because the spectrum is radial."""
+        B = xs.shape[0]
+        C = cfg.spectrum(_theta_of(th_flat))
+        A = (1.0 + C / s2).reshape(-1).repeat(2)[None]   # (1, 2·n·nr)
+        bt = _pack_spectrum(torch.sqrt(C) * cfg.rfft2(xs) / s2, sqw_n)
+        u0t = _pack_spectrum(cfg.rfft2(Z0.reshape(B, n, n)), sqw_n)
+        ut, aux = _packed_diag_pcg(A, bt, u0t, atol, cg_maxiter, grid,
+                                   nz=n * n)
+        return cfg.irfft2(_unpack_spectrum(ut, sqw_n)).reshape(B, -1), aux
+
+    def zhat_direct(xs, Z0, th_flat, atol):
+        C = cfg.spectrum(_theta_of(th_flat))
+        Z = cfg.irfft2(torch.sqrt(C) * cfg.rfft2(xs) / (s2 + C))
+        B = Z.shape[0]
+        return Z.reshape(B, -1), {
+            "converged": torch.ones(B, dtype=torch.bool, device=dev),
+            "failed": torch.zeros(B, dtype=torch.bool, device=dev)}
+
+    if x_obs is None:
+        if theta_true is None:
+            theta_true = (torch.zeros(2, device=dev) if cfg.infer_tilt
+                          else 0.0)
+        x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
+    else:
+        x_obs = torch.tensor(np.asarray(_host(x_obs), np.float32),
+                             device=dev)
+
+    prob = SimpleMuseProblem(
+        x_obs, sample_x_z, log_like, log_prior,
+        custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
+                     "lbfgs": None}[solver],
+        grad_theta_log_like=grad_theta, device=dev,
+        sample_white=sample_white, x_of_white=x_of_white)
+    prob.grf_config = cfg
+
+    def h_precond(w, x, th_flat):
+        """Ready-made CG preconditioner for implicit-diff get_H (the Pl
+        hook, src/muse.jl:312): for the whitened latent the z-Hessian is
+        EXACTLY Fourier-diagonal, A = −∇z²logLike = I + C_θ/σ², so this is
+        the exact inverse and the per-column CG solves converge in O(1)
+        iterations."""
+        C = cfg.spectrum(_theta_of(th_flat))
+        return cfg.irfft2(cfg.rfft2(w.reshape(n, n))
+                          / (1.0 + C / s2)).reshape(-1)
+
+    prob.suggested_h_precond = h_precond
+    return prob
 
 
 def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
@@ -284,9 +516,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     ``mesh`` is not ported yet (ROADMAP Queue 1 item 10). ``config``, when
     given, fixes the device.
     """
-    from ..ops.cg import batched_cg
-    from ..ops.grf_spectrum import (spectrum_quadform,
-                                    spectrum_quadform_and_grad)
+    from ..ops.grf_spectrum import spectrum_quadform
 
     if noise not in ("marginal", "direct", "fft"):
         raise ValueError(
@@ -381,27 +611,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     def zhat_cg(xs, Z0, th_flat, atol):
         """Batched PCG with the diagonal operator A = 1 + C/σ²."""
         C2 = _C2(th_flat)[None]
-        A = 1.0 + C2 / s2
-        A_grid = A.reshape(grid)
-        b = torch.sqrt(C2) * xs / s2
-        r0 = b - A * Z0
-        b_norm = torch.linalg.vector_norm(b, dim=-1)
-        # absolute gradient sup-norm atol → per-lane relative L2 tolerance
-        rel_tol = atol * float(np.sqrt(np.float32(Z0.shape[1]))) / \
-            torch.clamp(b_norm, min=1e-30)
-
-        def matvec_and_curvature(P):
-            quad, half = spectrum_quadform_and_grad(
-                P.reshape((P.shape[0],) + grid), A_grid)
-            return half.reshape(P.shape), quad
-
-        res = batched_cg(None, None, Z0, tol=rel_tol,
-                         maxiter=cg_maxiter, precond=lambda R: R / A,
-                         r0=r0, z0=r0 / A, b_norm=b_norm,
-                         matvec_and_curvature=matvec_and_curvature)
-        return res.x, {"converged": res.converged,
-                       "failed": ~torch.isfinite(res.r_norm),
-                       "iterations": res.iterations, "g_norm": res.r_norm}
+        return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
+                                atol, cg_maxiter, grid)
 
     def zhat_direct(xs, Z0, th_flat, atol):
         C2 = _C2(th_flat)[None]

@@ -83,7 +83,8 @@ def spectrum_quadform_cuda(z_ri: torch.Tensor,
                            invCw2: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card → (B,).
 
-    ``spectrum_quadform_cuda.launches`` counts the launches."""
+    ``spectrum_quadform_cuda.launches`` counts the launches and
+    ``.shapes`` holds every input shape (B, n, 2m) launched so far."""
     from .kernels import load_library
 
     B, L, S = _check_kernel_args("spectrum_quadform_cuda", z_ri, invCw2)
@@ -97,10 +98,12 @@ def spectrum_quadform_cuda(z_ri: torch.Tensor,
         raise RuntimeError(f"spectrum_quadform kernel launch failed: CUDA "
                            f"error {rc}")
     spectrum_quadform_cuda.launches += 1
+    spectrum_quadform_cuda.shapes.add(tuple(z_ri.shape))
     return out
 
 
 spectrum_quadform_cuda.launches = 0
+spectrum_quadform_cuda.shapes = set()
 
 
 def _quadform_value(z_ri, invCw2):
@@ -176,7 +179,7 @@ def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
     """Launch the fused CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card →
     (quad (B,), half_grad (B, n, 2m)). ``half_grad`` is bitwise ``z_ri *
     invCw2``. ``spectrum_quadform_and_grad_cuda.launches`` counts the
-    launches."""
+    launches and ``.shapes`` holds every input shape launched so far."""
     from .kernels import load_library
 
     B, L, S = _check_kernel_args("spectrum_quadform_and_grad_cuda", z_ri,
@@ -192,10 +195,12 @@ def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
         raise RuntimeError(f"spectrum_quadform_and_grad kernel launch failed: "
                            f"CUDA error {rc}")
     spectrum_quadform_and_grad_cuda.launches += 1
+    spectrum_quadform_and_grad_cuda.shapes.add(tuple(z_ri.shape))
     return out, g
 
 
 spectrum_quadform_and_grad_cuda.launches = 0
+spectrum_quadform_and_grad_cuda.shapes = set()
 
 
 def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):
@@ -212,7 +217,8 @@ def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):
 
 def reset_counts() -> None:
     """Zero both kernels' launch counts and the quadform's forward-evaluation
-    count."""
+    count. The wrappers' ``shapes`` are kept: they hold every input shape
+    launched in the process."""
     spectrum_quadform_cuda.launches = 0
     spectrum_quadform_and_grad_cuda.launches = 0
     SpectrumQuadform.evaluations = 0

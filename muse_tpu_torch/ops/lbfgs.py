@@ -41,6 +41,9 @@ is the same.
 count the loop iterations run, the objective evaluations of the line
 search and the host's reads of a device flag, over all calls.
 
+:func:`_two_loop_chrono` is the two-loop recursion of the global-clock
+history layout that ``ops/varpro.py`` keeps.
+
 This module minimizes; callers pass the negative log-likelihood.
 """
 
@@ -106,6 +109,40 @@ def _two_loop(g, S, Y, rho, valid, head, m: int) -> torch.Tensor:
         b = torch.where(v, _take_slot(rho, idx) * _dot(_take_slot(Y, idx), r),
                         0.0)
         r.addcmul_((alphas[j] - b)[:, None], _take_slot(S, idx))
+    return r.neg_()
+
+
+def _two_loop_chrono(g, S, Y, rho, valid, head: int, m: int) -> torch.Tensor:
+    """Two-loop recursion for the global-clock history layout.
+
+    ``head`` is one host integer for all lanes: every iteration writes (or,
+    per lane, invalidates) the same slot, so slot order is time order for
+    every lane and the slots are taken by plain indexing, ``S[idx]`` a
+    (B, N) view, with no per-lane gather. The caller keeps the expiry
+    contract: a lane that skips a store has the overwritten slot's
+    ``valid`` cleared and never keeps an m-iterations-old pair, which is
+    what makes slot ``(head − 1) % m`` the true newest pair for the γ
+    scaling. ``ops/varpro.py`` uses it (its history rows are field-sized);
+    :func:`batched_lbfgs` keeps the exact per-lane heads."""
+    q = g.clone()
+    alphas = []
+    for j in range(m):
+        idx = (head - 1 - j) % m
+        a = torch.where(valid[idx], rho[idx] * _dot(S[idx], q), 0.0)
+        q.addcmul_(a[:, None], Y[idx], value=-1.0)
+        alphas.append(a)
+
+    newest = (head - 1) % m
+    yy = _dot(Y[newest], Y[newest])
+    gamma = torch.where(valid[newest] & (yy > 0),
+                        _dot(S[newest], Y[newest]) / torch.clamp(yy, min=1e-30),
+                        1.0)
+    r = q.mul_(gamma[:, None])
+
+    for j in reversed(range(m)):
+        idx = (head - 1 - j) % m
+        b = torch.where(valid[idx], rho[idx] * _dot(Y[idx], r), 0.0)
+        r.addcmul_((alphas[j] - b)[:, None], S[idx])
     return r.neg_()
 
 

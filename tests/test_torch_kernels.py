@@ -62,8 +62,9 @@ def test_fused_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (101, 1024),
-                                 (128, 1024), (3, 100), (3, 33)])
+@pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (20, 1024),
+                                 (40, 1024), (101, 1024), (128, 1024),
+                                 (3, 100), (3, 33)])
 def test_kernel_matches_plain(cuda, B, n):
     z, w = _inputs(B, n, cuda)
     got = tp.spectrum_quadform_cuda(z, w)
@@ -121,12 +122,31 @@ def test_wrapper_checks(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (51, 1024),
-                                 (128, 1024), (3, 100), (5, 33)])
-def test_fused_kernel_matches_plain(cuda, B, n):
+def _band_weight(n, nbands, device, sigma_noise=0.01):
+    """The bandpower PCG's operator A = 1 + P0·exp(θ_band)/σ² on the (n, 2m)
+    grid, θ spread over ±0.5."""
+    from muse_tpu_torch.models.bandpower import _k_grid64, band_edges
+    k = _k_grid64(n)
+    band = np.searchsorted(band_edges(n, nbands), k, side="right")
+    C = (k + 1.0) ** -2.0 * np.exp(np.linspace(-0.5, 0.5, nbands))[band]
+    A = np.tile((1.0 + C / sigma_noise ** 2).astype(np.float32).reshape(-1), 2)
+    return torch.tensor(A.reshape(n, 2 * (n // 2 + 1)), device=device)
+
+
+# the lane counts of every path that launches the fused kernel at 1024²
+# (fit chunks of 128, 101 and 1 lanes; get_H's MAP solves of 51, 10, 20, 40
+# and 5 lanes), with a flat weight and with the bandpower operator
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,bands", [
+    (1, 1024, 0), (5, 1024, 0), (10, 1024, 0), (17, 1024, 0), (20, 1024, 0),
+    (40, 1024, 0), (51, 1024, 0), (101, 1024, 0), (128, 1024, 0),
+    (101, 1024, 12), (5, 1024, 12), (3, 100, 0), (5, 33, 0)])
+def test_fused_kernel_matches_plain(cuda, B, n, bands):
     """quad within 1e-5 relative of a float64 sum, half_grad bitwise
     ``z * w``, and a bitwise-equal rerun (no atomics)."""
     z, w = _inputs(B, n, cuda, seed=B + n)
+    if bands:
+        w = _band_weight(n, bands, cuda)
     q, g = tp.spectrum_quadform_and_grad_cuda(z, w)
     want = tp.spectrum_quadform_plain(z.double(), w.double())
     rel = ((q.double() - want).abs() / want.abs()).max().item()
@@ -140,8 +160,10 @@ def test_fused_kernel_matches_plain(cuda, B, n):
 def test_fused_wrapper_checks_and_counts(cuda):
     z, w = _inputs(2, 16, cuda)
     before = tp.spectrum_quadform_and_grad_cuda.launches
+    tp.spectrum_quadform_and_grad_cuda.shapes.discard((2, 16, 18))
     tp.spectrum_quadform_and_grad(z, w)
     assert tp.spectrum_quadform_and_grad_cuda.launches - before == 1
+    assert (2, 16, 18) in tp.spectrum_quadform_and_grad_cuda.shapes
     with pytest.raises(TypeError):
         tp.spectrum_quadform_and_grad_cuda(z.double(), w.double())
     with pytest.raises(ValueError):
@@ -175,3 +197,46 @@ def test_batched_lbfgs_on_the_card_matches_the_cpu(cuda, B, N):
     assert int(di.max()) <= 2
     # |z − c| < g_atol/diag ≤ 1e-3 on both sides
     torch.testing.assert_close(card.z.cpu(), cpu.z, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_band_reduction_route(cuda):
+    """Why the bandpower score reduces by sorted slices: at the full size
+    (101 lanes × 12 bands × 1024²) it is within 1e-5 of a float64 sum,
+    bitwise equal on a rerun and faster than a masked sum per band and than
+    ``index_add_`` (atomics). Run with ``-s`` to see the milliseconds."""
+    from muse_tpu_torch.models.bandpower import (_k_grid64, band_edges,
+                                                 bandpower_problem)
+    n, nb, B = 1024, 12, 101
+    pb = bandpower_problem(n=n, nbands=nb, sigma_noise=0.01, device=cuda)
+    band = torch.tensor(np.tile(np.searchsorted(
+        band_edges(n, nb), _k_grid64(n), side="right").reshape(-1), 2),
+        device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((B, band.numel()), generator=g, device=cuda) ** 2
+    masks = [(band == b).to(q.dtype) for b in range(nb)]
+    routes = {
+        "sorted slices": lambda: vmap(pb.band_sum)(q),
+        "masked sums": lambda: torch.stack([(q * m).sum(-1) for m in masks],
+                                           -1),
+        "index_add_": lambda: torch.zeros((B, nb), device=cuda).index_add_(
+            1, band, q)}
+    want = torch.stack([(q.double() * m.double()).sum(-1) for m in masks], -1)
+    ms = {}
+    for name, fn in routes.items():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            fn()
+        stop.record()
+        stop.synchronize()
+        ms[name] = start.elapsed_time(stop) / 10
+        rel = ((got.double() - want).abs() / want).max().item()
+        print(f"band reduction by {name}: {ms[name]:.3f} ms, max relative "
+              f"error vs float64 {rel:.3e}, rerun bitwise equal: "
+              f"{torch.equal(got, again)}")
+        if name == "sorted slices":
+            assert rel <= 1e-5 and torch.equal(got, again)
+    assert ms["sorted slices"] < min(ms["masked sums"], ms["index_add_"])
