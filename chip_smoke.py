@@ -27,7 +27,12 @@ full width, each checked against an exact oracle. The paths:
     theta_true=0.3)``, VarPro MAPs with the Newton-CG polish, a Broyden
     fit of 64 sims, reused J, implicit-diff H of 8 sims), the bandpower
     model with 12 bands and the pixel-space ``grf_problem``, both at
-    1024² and σ_noise = 0.01.
+    1024² and σ_noise = 0.01;
+  * slice 5, the mesh (``parallel.make_sims_mesh``, ``mesh=`` on every
+    entry point): slice 2's pipeline and slice 4's bandpower model with
+    ``mesh=``, on the one card — at world size 1 over NCCL, and as two
+    ranks sharing the card over gloo (a sims axis of 2, then a field axis
+    of 2) — and ``muse_fit(profile_dir=...)``.
 
 The noise level and θ_rtol are the repo's 1024² north-star settings. At
 the default σ = 1 the field is so faint that the marginal MLE of a draw
@@ -38,14 +43,16 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
   1. the card's name and power limit (``nvidia-smi``);
   2. the kernel build and its seconds;
   3. spectrum_quadform vs plain at every lane count a main path gives it
-     at n=1024 (``QUAD_LANES``: 1, 17, 20, 40, 101, 128), and at n=100 and
+     at n=1024 (``QUAD_LANES``: 1, 17, 20, 40, 64, 101, 128), and at n=100 and
      n=33 (ragged tails, misaligned lanes): max relative error ≤ 1e-5, a
      bitwise-equal rerun, and the autograd gradients against the plain
      version's (rtol 1e-5, atol 1e-5 relative to the largest entry); then
      on the slices' own θ-score inputs at their own lane counts (slice 2:
      x̃ drawn by the problem's sampler and the weight C/(C+σ²)² at the
      fit's first θ and at the MLE, chunks of 128 lanes and the one-lane
-     remainder of 513; slice 3: 101 and 40 lanes; slice 4's pixel GRF:
+     remainder of 513, their halves under a sims axis of 2 (64), and a
+     field axis of 2's row slices of 512 × 1026 at 128 and 1 lanes, both
+     halves of the grid; slice 3: 101 and 40 lanes; slice 4's pixel GRF:
      packed maps and the weight w·C/((C+σ²)²n²), 101 and 20 lanes), held
      against the plain version in float64 (max relative error ≤ 1e-5) with
      a bitwise rerun;
@@ -57,9 +64,12 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      ``muse_step``, and the whole slice 1 fit + J + H;
   6. spectrum_quadform_and_grad vs plain at every lane count a main path
      gives it at n=1024 (``FUSED_LANES``: the fits' chunks of 128, 101 and
-     1 lanes; the MAP solves of every get_H, 51, 40, 20, 10 and 5 lanes)
-     on the GRF operator A = 1 + C/σ², at 101 and 5 lanes also on the
-     bandpower model's 12-band operator, and at (3, 100) and (5, 33): quad
+     1 lanes; the MAP solves of every get_H, 51, 40, 20, 10 and 5 lanes;
+     under a sims axis of 2 the halves 64, 26 and 25) on the GRF operator
+     A = 1 + C/σ², at 101 and 5 lanes also on the bandpower model's 12-band
+     operator, on a field axis of 2's row slices of 512 × 1026 (both
+     halves: 128, 51 and 1 lanes on the GRF operator, 101 and 5 on the
+     12-band one), and at (3, 100) and (5, 33): quad
      max relative error ≤ 1e-5 against the plain version in float64 (the
      float32 plain's own rounding reaches 1.5e-5 at B=128), half_grad
      equal to the plain ``z*w`` (``torch.equal``), a bitwise-equal rerun;
@@ -149,15 +159,36 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      = CG steps, and its θ̂ within 0.25σ_F of ``grf_field_problem``'s on the
      same field (the whitened and the non-whitened latent define the same
      marginal model).
+ 14. the mesh on the one card. 14a: in this process, a process group of
+     world size 1 over NCCL and ``make_sims_mesh()``: phase 7's pipeline
+     with ``mesh=`` gives θ̂, σ, J and H bitwise equal to phase 7's warm
+     run. Then two ranks spawned with ``torch.multiprocessing`` (start
+     method ``spawn``, the kernels already built, a hard limit of
+     ``MESH_SPAWN_TIMEOUT_S`` after which they are killed and the run
+     fails) share the card over gloo (NCCL refuses two ranks on one
+     device). 14b: ``sims=2``, phase 7's pipeline, cold then warm: θ̂ and σ
+     within rtol 1e-6 of phase 7 (bitwise equality printed). 14c:
+     ``sims=1 × field=2``: θ̂ within 1e-4 + 1e-4·|θ̂| of phase 7, the
+     north-star gates, and on each rank quadform launches = θ-score
+     evaluations = ``muse_step_white`` calls, fused launches = CG steps.
+     14d: phase 13's bandpower pipeline on the field axis: each θ̂_b within
+     rtol 1e-4 of phase 13's, the band reduction over the field axis within
+     1e-5 of a float64 sum and bitwise equal on a rerun. Every shape a rank
+     launched at must have been held in phases 3 and 6. Printed, not gated:
+     each rank's walls, peak memory, collectives and bytes beside the
+     one-process walls of phases 7 and 13, and the median ms of one
+     collective. 14e: the warm north-star fit with ``profile_dir``: one
+     trace file holding the step's kernels. Last, two ranks over NCCL on
+     the one card, and what NCCL answers (printed).
 
-The wrappers record every input shape they launch at; after phase 13 the
+The wrappers record every input shape they launch at; after phase 14 the
 run fails if a kernel ran at a shape that phases 3 and 6 did not hold
 against the plain version. No phase's failure is caught: any failure exits
 non-zero. The line before
 last is ``{"kernels": [...]}``: each kernel's ``launches`` is its count on
-slice 4's paths (the counters set to 0 just before each and read just
-after), and ``launches_by_path`` holds the count of every slice's path. The
-last line is ``{"ok": true, "device": …}``.
+slice 5's path, phase 14c's rank 0 (the counters set to 0 just before each
+path and read just after), and ``launches_by_path`` holds the count of
+every slice's path. The last line is ``{"ok": true, "device": …}``.
 Without a card, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -585,11 +616,33 @@ H_LANES4_PIXEL = (NSIMS4_GRF // 10, 2 * (NSIMS4_GRF // 10))
 # and of slice 2, the ±ε stencil batches of slices 1 and 4 (20 lanes) and
 # slice 3's adaptive stencil (40). The fused kernel: the PCG of every fit
 # chunk and of every get_H's fiducial and stencil MAP solves
+#
+# Slice 5, the mesh on the one card (phase 14): two ranks share it over
+# gloo. A sims axis of 2 splits every chunk of lanes in two contiguous
+# blocks, the first one longer (parallel/mesh.py); a field axis of 2 gives
+# each rank MESH_ROWS of the 1024 rows of the packed (1024, 1026) grid
+MESH_RANKS, MESH_ROWS = 2, 512
+
+
+def _halves(c):
+    """The sims blocks of a chunk of ``c`` lanes on MESH_RANKS ranks."""
+    return {c - c // 2, c // 2} - {0}
+
+
+# the sharded north star's sims halves: its fit chunks and its H's MAPs
+MESH_LANES2 = sorted(set().union(*map(_halves, FIT_CHUNKS2)))
+MESH_H_LANES2 = sorted(_halves(H_NSIMS2))
 QUAD_LANES = sorted({1, 17, 101, *FIT_CHUNKS2, NSIMS3 + 1, H_LANES3,
-                     NSIMS4_GRF + 1, H_LANES4_PIXEL[1]})
+                     NSIMS4_GRF + 1, H_LANES4_PIXEL[1], *MESH_LANES2})
 FUSED_LANES = sorted({1, 17, H_NSIMS2, *FIT_CHUNKS2, NSIMS3 + 1, H_NSIMS3,
                       H_LANES3, NSIMS4_GRF + 1, H_CHUNK4_BAND,
-                      *H_LANES4_PIXEL})
+                      *H_LANES4_PIXEL, *MESH_LANES2, *MESH_H_LANES2})
+# and the lane counts at which the field axis launches on MESH_ROWS rows:
+# the north star's fit chunks and H's MAPs; the bandpower fit's chunk and
+# its H's chunks (the 12-band operator)
+QUAD_SLICED = FIT_CHUNKS2
+FUSED_SLICED = sorted({*FIT_CHUNKS2, H_NSIMS2})
+FUSED_SLICED_BAND = sorted({NSIMS4_GRF + 1, H_CHUNK4_BAND})
 
 
 def timed(fn):
@@ -1086,6 +1139,7 @@ def phase13(card, dev, field):
         raise AssertionError("fused launches do not match the CG steps")
     if any(h["map_failed"].any() for h in res.history):
         raise AssertionError("a bandpower MAP failed")
+    band_theta = np.asarray(res.theta)
     del pb, res
 
     # the pixel GRF on the field GRF's data
@@ -1130,7 +1184,451 @@ def phase13(card, dev, field):
     if not fused_grf == batched_cg.curvature_steps > 0:
         raise AssertionError("fused launches do not match the CG steps")
     return {"fused_bandpower": fused_band, "fused_grf_pixel": fused_grf,
-            "quad_grf_pixel": quad}
+            "quad_grf_pixel": quad, "band_theta": band_theta,
+            "band_fit_s": t_fit, "band_J_s": t_j, "band_H_s": t_h}
+
+
+# phase 14: the hard wall-time limit of the spawned ranks (killed when it
+# passes), and the process groups' own timeout for one collective
+MESH_SPAWN_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 420, 120
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def northstar_on(mesh, dev):
+    """The slice 2 pipeline of phase 7 through the entry points with
+    ``mesh=``: ``grf_spectral_problem(mesh=)``, the hoisted fit, the reused
+    J and the implicit H. Returns θ̂, σ, J, H, the walls, the peak memory,
+    the mesh's collectives and bytes and the kernels' counts."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch
+    from muse_tpu_torch.models import grf_spectral_problem
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+    from muse_tpu_torch.solver import CompiledProblem
+    from muse_tpu_torch.theta import ThetaSpec
+
+    prob = grf_spectral_problem(n=1024, sigma_noise=0.01, solver="cg",
+                                data_seed=42, mesh=mesh, device=dev)
+    comp = CompiledProblem(prob, ThetaSpec.from_example(0.5), np.array([0.5]))
+    calls = [0]
+    step_white = comp.muse_step_white
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step_white(*args, **kwargs)
+
+    comp.muse_step_white = counted
+    mesh.collectives = mesh.collective_bytes = 0
+    gs.reset_counts()
+    batched_cg.curvature_steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = muse_tpu_torch.MuseResult()
+    _, t_fit = timed(lambda: muse_tpu_torch.muse_fit(
+        res, prob, 0.5, nsims=NSIMS2, max_batch=MAX_BATCH2, theta_rtol=1e-5,
+        alpha=1.0, Hinv_update="sims", compiled=comp, seed=1, mesh=mesh))
+    fit_collectives = mesh.collectives
+    _, t_j = timed(lambda: muse_tpu_torch.get_J(
+        res, prob, nsims=NSIMS2, max_batch=MAX_BATCH2, compiled=comp,
+        warn_reuse=False, mesh=mesh))
+    _, t_h = timed(lambda: muse_tpu_torch.get_H(
+        res, prob, nsims=H_NSIMS2, implicit_diff=True,
+        implicit_diff_precond=prob.suggested_h_precond, max_batch=MAX_BATCH2,
+        compiled=comp, mesh=mesh))
+    return {"theta": float(res.theta[0]), "sigma": float(res.sigma[0]),
+            "J": float(res.J[0, 0]), "H": float(res.H[0, 0]),
+            "steps": len(res.history), "fit_s": t_fit, "J_s": t_j,
+            "H_s": t_h,
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "collectives": mesh.collectives,
+            "fit_collectives": fit_collectives,
+            "bytes": mesh.collective_bytes,
+            "quad_launches": gs.spectrum_quadform_cuda.launches,
+            "quad_evaluations": gs.SpectrumQuadform.evaluations,
+            "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
+            "cg_steps": batched_cg.curvature_steps,
+            "muse_step_white_calls": calls[0]}
+
+
+def bandpower_on(mesh, dev):
+    """Phase 13's bandpower pipeline with ``mesh=``, and the band reduction
+    of 101 lanes of score terms over the field axis (against a float64 sum
+    of the whole, and rerun)."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch
+    from muse_tpu_torch.models import bandpower_problem
+    from muse_tpu_torch.models.bandpower import _k_grid64, band_edges
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+
+    n, nb = N4, NBANDS4
+    pb = bandpower_problem(n=n, nbands=nb, sigma_noise=0.01, data_seed=42,
+                           device=dev, mesh=mesh)
+    B = NSIMS4_GRF + 1
+    band = torch.tensor(np.tile(np.searchsorted(
+        band_edges(n, nb), _k_grid64(n), side="right").reshape(-1), 2),
+        device=dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((B, band.numel()), generator=g, device=dev) ** 2
+    want = torch.stack([(q.double() * (band == b)).sum(-1)
+                        for b in range(nb)], -1)
+    mine = q[:, pb.field_slice].contiguous()
+
+    def reduce():
+        return mesh.reduce_field(torch.func.vmap(pb.band_sum)(mine))
+
+    got, again = reduce(), reduce()
+    rel = ((got.double() - want).abs() / want).max().item()
+    bitwise = bool(torch.equal(got, again))
+    del q, want, mine, got, again
+
+    mesh.collectives = mesh.collective_bytes = 0
+    gs.reset_counts()
+    batched_cg.curvature_steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = muse_tpu_torch.MuseResult()
+    _, t_fit = timed(lambda: muse_tpu_torch.muse_fit(
+        res, pb, np.zeros(nb), nsims=NSIMS4_GRF, theta_rtol=1e-5, alpha=1.0,
+        seed=1, mesh=mesh))
+    _, t_j = timed(lambda: muse_tpu_torch.get_J(
+        res, pb, nsims=NSIMS4_GRF, warn_reuse=False, mesh=mesh))
+    _, t_h = timed(lambda: muse_tpu_torch.get_H(
+        res, pb, nsims=NSIMS4_GRF // 10, implicit_diff=True,
+        implicit_diff_precond=pb.suggested_h_precond,
+        max_batch=H_CHUNK4_BAND, mesh=mesh))
+    return {"theta": np.asarray(res.theta).tolist(),
+            "steps": len(res.history), "fit_s": t_fit, "J_s": t_j,
+            "H_s": t_h, "reduction_rel": rel, "reduction_bitwise": bitwise,
+            "failed": bool(any(h["map_failed"].any() for h in res.history)),
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "collectives": mesh.collectives, "bytes": mesh.collective_bytes,
+            "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
+            "cg_steps": batched_cg.curvature_steps}
+
+
+def collective_ms(fn, reps=50):
+    """Median host milliseconds of ``fn()`` (a collective and its copies),
+    the card drained before and after each call."""
+    return statistics.median(timed(fn)[1] for _ in range(reps)) * 1e3
+
+
+def _mesh_rank(rank, port, out_dir):
+    """One of the MESH_RANKS spawned ranks of phase 14: both on the one
+    card over gloo. Runs 14b (sims=2, cold then warm), 14c and 14d
+    (sims=1 × field=2) and writes what it measured to ``rank<r>.json``."""
+    os.environ["LOCAL_RANK"] = "0"          # the one card, for every rank
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.parallel import make_sims_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        sims = make_sims_mesh(sims=MESH_RANKS)
+        dev = sims.device
+        out = {"14b_cold": northstar_on(sims, dev),
+               "14b": northstar_on(sims, dev)}
+        field = make_sims_mesh(sims=1, field=MESH_RANKS)
+        out["14c"] = northstar_on(field, dev)
+        out["14d"] = bandpower_on(field, dev)
+        # what one collective of the sharded step costs here: the field
+        # sum of a chunk's (128,) per-lane partial sums, and the sims
+        # gather of the fit's (513, 5) float64 per-lane table
+        part = torch.ones(MAX_BATCH2, device=dev)
+        lo, hi = sims.lane_block(NSIMS2 + 1)
+        table = np.zeros((hi - lo, 5))
+        out["ms"] = {
+            "field all_reduce (128,) float32": collective_ms(
+                lambda: field.reduce_field(part)),
+            "sims gather (513, 5) float64": collective_ms(
+                lambda: sims.gather_sims(table, lo, NSIMS2 + 1)),
+            "broadcast (4,) float64": collective_ms(
+                lambda: sims.broadcast_host(np.zeros(4)))}
+        out["shapes"] = {
+            "spectrum_quadform": sorted(gs.spectrum_quadform_cuda.shapes),
+            "spectrum_quadform_and_grad": sorted(
+                gs.spectrum_quadform_and_grad_cuda.shapes)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_rank(rank, port, out_dir):
+    """Two ranks on the one card over NCCL: one all_reduce, and what came
+    of it (NCCL is expected to refuse two ranks on one device)."""
+    os.environ["LOCAL_RANK"] = "0"
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=MESH_RANKS, timeout=datetime.timedelta(seconds=60))
+    try:
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        outcome = f"all_reduce ran: {t.tolist()}"
+    except Exception as e:        # the refusal is the reading
+        outcome = f"refused: {type(e).__name__}: " + " | ".join(
+            line for line in str(e).splitlines() if line.strip())[:300]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"nccl{rank}.json"), "w") as f:
+        json.dump(outcome, f)
+
+
+def spawn_ranks(fn, out_dir, timeout):
+    """``fn(rank, port, out_dir)`` in MESH_RANKS processes started with the
+    ``spawn`` method; kills them all and fails when ``timeout`` seconds
+    pass, and fails when one of them fails."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(fn, args=(_free_port(), out_dir),
+                              nprocs=MESH_RANKS, join=False,
+                              start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                raise AssertionError(f"{fn.__name__}: the ranks ran past "
+                                     f"{timeout} s; killed")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def phase14(card, dev, ref7, walls7, mle2, sig_F2, band13, held, comp2,
+            prob2):
+    """The mesh on the one card. 14a: world size 1 over NCCL in this
+    process; 14b-14d: two spawned ranks sharing the card over gloo; 14e:
+    ``profile_dir``; then NCCL with two ranks on the card, expected to be
+    refused. Returns the kernels' launch counts on the mesh paths."""
+    import datetime
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import muse_tpu_torch
+    from muse_tpu_torch.parallel import make_sims_mesh
+
+    torch.cuda.empty_cache()       # leave the card to the ranks
+    walls_note = (f"one process (phase 7, warm): fit {walls7['fit_s']:.3f} s, "
+                  f"J {walls7['J_s']:.4f} s, H {walls7['H_s']:.3f} s")
+
+    def report(label, r):
+        phase(f"phase 14{label} [{card}]: θ̂ {r['theta']:.9f} σ "
+              f"{r['sigma']:.9f} J {r['J']:.6f} H {r['H']:.6f}, steps "
+              f"{r['steps']}; walls fit {r['fit_s']:.3f} s, J {r['J_s']:.4f}"
+              f" s, H {r['H_s']:.3f} s; peak {r['peak_GiB']:.2f} GiB; "
+              f"collectives {r['collectives']} ({r['fit_collectives']} in "
+              f"the fit), {r['bytes']} bytes; quadform launches "
+              f"{r['quad_launches']} = evaluations {r['quad_evaluations']} "
+              f"= muse_step_white calls {r['muse_step_white_calls']}; fused "
+              f"launches {r['fused_launches']} = CG steps {r['cg_steps']}")
+
+    # 14a: world size 1 over NCCL, the mesh code path at full width
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = make_sims_mesh()
+        a = northstar_on(mesh, dev)
+        x = torch.ones(MAX_BATCH2, device=dev)
+        nccl_ms = collective_ms(lambda: dist.all_reduce(x))
+    finally:
+        dist.destroy_process_group()
+    report("a world 1 over NCCL", a)
+    ref = {"theta": float(ref7.theta[0]), "sigma": float(ref7.sigma[0]),
+           "J": float(ref7.J[0, 0]), "H": float(ref7.H[0, 0])}
+    same = {k: a[k] == v for k, v in ref.items()}
+    phase(f"phase 14a [{card}] bitwise equal to phase 7's warm run: {same}; "
+          f"{walls_note}; NCCL all_reduce of (128,) float32 at world 1: "
+          f"{nccl_ms:.4f} ms")
+    if not all(same.values()):
+        raise AssertionError(f"14a differs from phase 7: {a} vs {ref}")
+
+    # why a sims axis can move σ in its last bits: implicit H's per-sim
+    # values at 14b's widths (26 and 25 sims) against one chunk of 51, and
+    # the contraction behind H2 (an einsum over z) at those widths
+    Hs = [np.asarray(muse_tpu_torch.get_H(
+        muse_tpu_torch.MuseResult(), prob2, ref7.theta, seed=1,
+        nsims=H_NSIMS2, implicit_diff=True, max_batch=mb,
+        implicit_diff_precond=prob2.suggested_h_precond,
+        compiled=comp2).Hs) for mb in (None, MESH_H_LANES2[-1])]
+    g = torch.Generator(device=dev).manual_seed(41)
+    dF = torch.randn((H_NSIMS2, 2 * 1024 * 513, 1), generator=g, device=dev)
+    Y = torch.randn((H_NSIMS2, 1, 2 * 1024 * 513), generator=g, device=dev)
+    k = MESH_H_LANES2[-1]
+    whole = torch.einsum("szi,sjz->sij", dF, Y)[:k]
+    part = torch.einsum("szi,sjz->sij", dF[:k], Y[:k])
+    phase(f"phase 14 [{card}] implicit H per sim in chunks of {k} vs one "
+          f"of {H_NSIMS2}: bitwise equal {np.array_equal(*Hs)}, max "
+          f"relative difference {np.max(np.abs(Hs[1] - Hs[0]) / np.abs(Hs[0])):.3e}; "
+          f"einsum('szi,sjz->sij') over 1024² at {k} vs {H_NSIMS2} sims: "
+          f"bitwise equal {bool(torch.equal(whole, part))}")
+    del dF, Y, whole, part
+
+    # the kernels at the shapes a mesh gives them: a field rank's rows of
+    # a 128-lane chunk, a sims rank's half chunk (CUDA events; plain
+    # versions, the one-call library route and the bounds beside them)
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    g = torch.Generator(device=dev).manual_seed(14)
+    for B, rows in ((MAX_BATCH2, MESH_ROWS), (MESH_LANES2[-1], 1024)):
+        z = torch.randn((B, rows, 1026), generator=g, device=dev)
+        w = torch.rand((rows, 1026), generator=g, device=dev) + 0.5
+        L = rows * 1026
+        q = [cuda_ms(lambda: gs.spectrum_quadform_cuda(z, w)),
+             cuda_ms(lambda: gs.spectrum_quadform_plain(z, w)),
+             cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w)),
+             *least_ms((B * L + L + B) * 4, 3 * B * L)]
+        f = [cuda_ms(lambda: gs.spectrum_quadform_and_grad_cuda(z, w)),
+             cuda_ms(lambda: gs.spectrum_quadform_and_grad_plain(z, w)),
+             *least_ms((2 * B * L + L + B) * 4, 3 * B * L)]
+        phase(f"phase 14 [{card}] kernels at ({B}, {rows}, 1026): "
+              f"spectrum_quadform {q[0]:.4f} ms (plain {q[1]:.4f}, library "
+              f"einsum {q[2]:.4f}, bound {q[3]:.4f} by {q[4]}); "
+              f"spectrum_quadform_and_grad {f[0]:.4f} ms (plain {f[1]:.4f}, "
+              f"bound {f[2]:.4f} by {f[3]})")
+        del z, w
+
+    # 14b-14d: two ranks on the card over gloo
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    _, t_spawn = timed(lambda: spawn_ranks(_mesh_rank, out_dir,
+                                           MESH_SPAWN_TIMEOUT_S))
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    phase(f"phase 14 [{card}] {MESH_RANKS} ranks over gloo on the one card: "
+          f"{t_spawn:.1f} s from spawn to exit")
+    target = max(1e-3, 2.0 * sig_F2 / np.sqrt(NSIMS2))
+    for r, out in enumerate(ranks):
+        report(f"b rank {r} sims=2 (cold)", out["14b_cold"])
+        report(f"b rank {r} sims=2", out["14b"])
+        report(f"c rank {r} sims=1 × field=2", out["14c"])
+        d = out["14d"]
+        phase(f"phase 14d rank {r} [{card}] bandpower field=2: θ̂ "
+              f"{np.round(d['theta'], 6).tolist()}; steps {d['steps']}; "
+              f"walls fit {d['fit_s']:.3f} s, J {d['J_s']:.4f} s, H "
+              f"{d['H_s']:.3f} s (one process, phase 13: fit "
+              f"{band13['band_fit_s']:.3f} s, J {band13['band_J_s']:.4f} s, "
+              f"H {band13['band_H_s']:.3f} s); peak {d['peak_GiB']:.2f} GiB; "
+              f"collectives {d['collectives']}, {d['bytes']} bytes; fused "
+              f"launches {d['fused_launches']} = CG steps {d['cg_steps']}; "
+              f"band reduction over the field axis: max relative error vs "
+              f"float64 {d['reduction_rel']:.3e}, rerun bitwise equal "
+              f"{d['reduction_bitwise']}")
+        phase(f"phase 14 rank {r} [{card}] one collective, median ms: "
+              f"{out['ms']}; {walls_note}")
+    for r, out in enumerate(ranks):
+        b, c, d = out["14b"], out["14c"], out["14d"]
+        for label, run in (("14b", b), ("14b cold", out["14b_cold"])):
+            rel = abs(run["theta"] - ref["theta"]) / abs(ref["theta"])
+            rel_s = abs(run["sigma"] - ref["sigma"]) / ref["sigma"]
+            phase(f"phase {label} rank {r}: θ̂ and σ against phase 7: "
+                  f"relative {rel:.3e} and {rel_s:.3e}, bitwise equal "
+                  f"{run['theta'] == ref['theta'] and run['sigma'] == ref['sigma']}")
+            if not (rel <= 1e-6 and rel_s <= 1e-6):
+                raise AssertionError(f"{label} rank {r} off phase 7")
+        gap = abs(c["theta"] - mle2)
+        phase(f"phase 14c rank {r}: |θ̂ − θ̂ phase 7| "
+              f"{abs(c['theta'] - ref['theta']):.3e} (<= 1e-4 + 1e-4·|θ̂|), "
+              f"|θ̂−MLE| {gap:.6f} (< {target:.6f}), σ/σ_F "
+              f"{c['sigma'] / sig_F2:.4f}")
+        if not abs(c["theta"] - ref["theta"]) <= 1e-4 + 1e-4 * abs(
+                ref["theta"]):
+            raise AssertionError(f"14c rank {r} θ̂ off phase 7")
+        if not (gap < target and 0.9 < c["sigma"] / sig_F2 < 1.1):
+            raise AssertionError(f"14c rank {r} misses the north-star gates")
+        for run in (b, c):
+            if not (run["muse_step_white_calls"] > 0 and run["quad_launches"]
+                    == run["quad_evaluations"]
+                    == run["muse_step_white_calls"]):
+                raise AssertionError(f"rank {r}: quadform launches do not "
+                                     f"match the θ-score evaluations: {run}")
+            if not run["fused_launches"] == run["cg_steps"] > 0:
+                raise AssertionError(f"rank {r}: fused launches do not "
+                                     f"match the CG steps: {run}")
+        # JAX's tolerance for a field axis (tests/test_mesh.py:216): a
+        # relative bound alone fails a band whose θ̂ sits near 0
+        ref_b = band13["band_theta"]
+        diff_b = np.abs(np.asarray(d["theta"]) - ref_b)
+        phase(f"phase 14d rank {r}: max |θ̂_b − θ̂_b phase 13| "
+              f"{diff_b.max():.3e}, max relative "
+              f"{(diff_b / np.abs(ref_b)).max():.3e} (each <= 1e-4 + "
+              f"1e-4·|θ̂_b|)")
+        if not (diff_b <= 1e-4 + 1e-4 * np.abs(ref_b)).all():
+            raise AssertionError(f"14d rank {r} θ̂ off phase 13")
+        if not (d["reduction_bitwise"] and d["reduction_rel"] <= 1e-5):
+            raise AssertionError("the sharded band reduction is off or not "
+                                 "reproducible")
+        if d["failed"] or not d["fused_launches"] == d["cg_steps"] > 0:
+            raise AssertionError(f"14d rank {r}: {d}")
+        for name, shapes in out["shapes"].items():
+            missed = sorted({tuple(x) for x in shapes} - held[name])
+            phase(f"phase 14 rank {r} {name}: launched at "
+                  f"{sorted(tuple(x) for x in shapes)}; not held against "
+                  f"the plain version: {missed}")
+            if missed:
+                raise AssertionError(f"{name} ran at shapes no phase held: "
+                                     f"{missed}")
+    for name in ("14b", "14c"):
+        if ranks[0][name]["theta"] != ranks[1][name]["theta"]:
+            raise AssertionError(f"{name}: the ranks ended apart")
+
+    # 14e: profile_dir on the warm north-star fit
+    with tempfile.TemporaryDirectory() as tmp:
+        res = muse_tpu_torch.MuseResult()
+        _, t_prof = timed(lambda: muse_tpu_torch.muse_fit(
+            res, prob2, 0.5, nsims=NSIMS2, max_batch=MAX_BATCH2,
+            theta_rtol=1e-5, alpha=1.0, Hinv_update="sims", compiled=comp2,
+            seed=1, profile_dir=tmp))
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        text = open(traces[0]).read() if len(traces) == 1 else ""
+        kernels = {k: text.count(k) for k in
+                   ("quad_partial_kernel", "quadgrad_partial_kernel")}
+        phase(f"phase 14e [{card}] muse_fit(profile_dir=...): "
+              f"{[os.path.basename(t) for t in traces]}, "
+              f"{len(text.encode())} bytes, events of the step's kernels "
+              f"{kernels}, 'muse_step' spans {text.count('muse_step')}; "
+              f"the fit under the profiler {t_prof:.3f} s ({walls_note})")
+        if not (text and all(kernels.values())):
+            raise AssertionError("profile_dir wrote no trace of the step's "
+                                 "kernels")
+
+    # NCCL with two ranks on one card: the reading, not a gate
+    spawn_ranks(_nccl_rank, out_dir, 120)
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"nccl{r}.json")) as f:
+            phase(f"phase 14 [{card}] NCCL, {MESH_RANKS} ranks on one card, "
+                  f"rank {r}: {json.load(f)}")
+    return {"a": a, "b": ranks[0]["14b"], "c": ranks[0]["14c"],
+            "d": ranks[0]["14d"]}
 
 
 def main():
@@ -1266,9 +1764,17 @@ def main():
             return gs.pack_rfft2(x).contiguous(), gs.pack_weights(wq)
         return make
 
-    # slice 2's θ-score inputs at the lane counts of its fit, slice 3's at
-    # its fit's chunk and its adaptive-FD stencil batch, slice 4's pixel
-    # GRF's at its fit's chunk and its ±ε stencil batch
+    def field_rows(make, rows):
+        """``make``'s inputs cut to a field rank's ``rows`` of the grid."""
+        def cut(B, th):
+            z, w = make(B, th)
+            return z[:, rows].contiguous(), w[rows].contiguous()
+        return cut
+
+    # slice 2's θ-score inputs at the lane counts of its fit (whole, and
+    # under a sims axis of 2), and at a field axis of 2's row slices; slice
+    # 3's at its fit's chunk and its adaptive-FD stencil batch, slice 4's
+    # pixel GRF's at its fit's chunk and its ±ε stencil batch
     prob2 = grf_spectral_problem(n=1024, sigma_noise=0.01, solver="cg",
                                  data_seed=42, device=dev)
     mle2, sig_F2 = grf_marginal_mle(prob2.x_real, prob2.grf_config)
@@ -1277,7 +1783,12 @@ def main():
     mle3, sig_F3 = grf_marginal_mle(prob3.x_real, prob3.grf_config)
     abs_err_path = max(
         check_theta_score("slice 2", spectral_score_inputs(prob2),
-                          FIT_CHUNKS2, (0.5, mle2)),
+                          sorted({*FIT_CHUNKS2, *MESH_LANES2}), (0.5, mle2)),
+        *(check_theta_score(
+            f"slice 5 field rows {rows.start}:{rows.stop or 1024}",
+            field_rows(spectral_score_inputs(prob2), rows), QUAD_SLICED,
+            (0.5, mle2))
+          for rows in (slice(0, MESH_ROWS), slice(MESH_ROWS, None))),
         check_theta_score("slice 3", spectral_score_inputs(prob3),
                           (NSIMS3 + 1, H_LANES3), (0.5, mle3)),
         check_theta_score("slice 4 pixel GRF", pixel_score_inputs(
@@ -1357,7 +1868,7 @@ def main():
     # models: random packed vectors p and the weight A = 1 + C/σ², with the
     # GRF spectrum at θ = 0.5 or the 12-band spectrum P0·exp(θ_band) of the
     # bandpower model at a θ spread over ±0.5
-    def pcg_inputs(B, n, seed, bands=0):
+    def pcg_inputs(B, n, seed, bands=0, rows=None):
         cfg = muse_tpu_torch.models.GrfConfig(n, sigma_noise=0.01,
                                               device=dev)
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -1371,13 +1882,21 @@ def main():
                                  dtype=C.dtype, device=dev)
         A = 1.0 + C.reshape(-1).repeat(2) / 0.01 ** 2
         p = torch.randn((B,) + grid, generator=g, device=dev)
-        return p, A.reshape(grid).contiguous()
+        A = A.reshape(grid)
+        if rows is not None:           # a field rank's rows
+            p, A = p[:, rows], A[rows]
+        return p.contiguous(), A.contiguous()
 
+    # every lane count of the paths, the bandpower operator at its own, and
+    # the row slices of a field axis of 2 (both halves)
     abs_err_fused = 0.0
-    shapes = [(B, 1024, 0) for B in FUSED_LANES] + [
-        (B, 1024, NBANDS4) for B in (NSIMS4_GRF + 1, H_CHUNK4_BAND)]
-    for B, n, bands in shapes + [(3, 100, 0), (5, 33, 0)]:
-        p, A = pcg_inputs(B, n, seed=B + n, bands=bands)
+    shapes = [(B, 1024, 0, None) for B in FUSED_LANES] + [
+        (B, 1024, NBANDS4, None) for B in (NSIMS4_GRF + 1, H_CHUNK4_BAND)]
+    for rows in (slice(0, MESH_ROWS), slice(MESH_ROWS, None)):
+        shapes += [(B, 1024, 0, rows) for B in FUSED_SLICED]
+        shapes += [(B, 1024, NBANDS4, rows) for B in FUSED_SLICED_BAND]
+    for B, n, bands, rows in shapes + [(3, 100, 0, None), (5, 33, 0, None)]:
+        p, A = pcg_inputs(B, n, seed=B + n, bands=bands, rows=rows)
         held["spectrum_quadform_and_grad"].add(tuple(p.shape))
         q, hg = gs.spectrum_quadform_and_grad_cuda(p, A)
         q2, hg2 = gs.spectrum_quadform_and_grad_cuda(p, A)
@@ -1392,6 +1911,7 @@ def main():
         exact = bool(torch.equal(hg, hgp))
         bitwise = bool(torch.equal(q, q2) and torch.equal(hg, hg2))
         phase(f"phase 6 B={B} n={n} "
+              f"{'' if rows is None else f'rows {rows.start}:{rows.stop or n} '}"
               f"{f'{bands}-band' if bands else 'GRF'} weight: quad max rel err {rel:.3e} (the "
               f"float32 plain's own {rel32:.3e}), max abs err "
               f"{abs_err:.3e}; half_grad == z*w: {exact}; rerun bitwise "
@@ -1544,6 +2064,10 @@ def main():
     phase(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     slice4 = phase13(card, dev, field=(prob, res))
     phase(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    mesh = phase14(card, dev, ref7=res2, walls7=runs[1], mle2=mle2,
+                   sig_F2=sig_F2, band13=slice4, held=held, comp2=comp2,
+                   prob2=prob2)
+    phase(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -1563,24 +2087,31 @@ def main():
         "name": "spectrum_quadform", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:137",
-        "launches": slice4["quad_grf_pixel"], "max_abs_err": abs_err_path,
+        "launches": mesh["c"]["quad_launches"], "max_abs_err": abs_err_path,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
         "bound_by": quad_by, "library_ms": library_ms,
         "launches_by_path": {"slice1_field_grf": launches_slice1,
                              "slice2_northstar": launches_slice2,
                              "slice3_lbfgs": launches_slice3,
-                             "slice4_grf_pixel": slice4["quad_grf_pixel"]}}, {
+                             "slice4_grf_pixel": slice4["quad_grf_pixel"],
+                             "slice5_mesh_14a": mesh["a"]["quad_launches"],
+                             "slice5_mesh_14b_rank0": mesh["b"]["quad_launches"],
+                             "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"]}}, {
         "name": "spectrum_quadform_and_grad", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:73",
-        "launches": slice4["fused_bandpower"] + slice4["fused_grf_pixel"],
+        "launches": mesh["c"]["fused_launches"],
         "max_abs_err": abs_err_fused,
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
         "bound_by": fused_by, "library_ms": None,
         "launches_by_path": {"slice2_northstar": fused_launches,
                              "slice3_cg_comparison": fused_cg3,
                              "slice4_bandpower": slice4["fused_bandpower"],
-                             "slice4_grf_pixel": slice4["fused_grf_pixel"]}}]}))
+                             "slice4_grf_pixel": slice4["fused_grf_pixel"],
+                             "slice5_mesh_14a": mesh["a"]["fused_launches"],
+                             "slice5_mesh_14b_rank0": mesh["b"]["fused_launches"],
+                             "slice5_mesh_14c_rank0": mesh["c"]["fused_launches"],
+                             "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

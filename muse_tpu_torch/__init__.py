@@ -24,6 +24,13 @@ pixel-space whitened GRF (``models.grf_problem``). Both TPU
 kernels of the JAX package have their CUDA counterparts in
 ``csrc/spectrum_quadform.cu``: the spectrum quadform (the θ-scores) and the
 fused quadform + half-gradient (the spectral GRF's PCG operator).
+
+Slice 5 adds the mesh (``parallel``): one process per device over
+``torch.distributed``, the sims axis for every problem and every entry
+point (``mesh=`` on ``muse``, ``muse_fit``, ``get_J``, ``get_H``), the field
+axis for the packed spectral models (``grf_spectral_problem``,
+``bandpower_problem``), and ``muse_fit(profile_dir=...)`` on
+``torch.profiler``.
 """
 
 import torch as _torch
@@ -41,12 +48,13 @@ from .solver.jacobians import get_H, get_J  # noqa: E402
 from .solver.muse import muse, muse_fit  # noqa: E402
 from .theta import ThetaSpec  # noqa: E402
 from .ppl import PPLMuseProblem, model_problem  # noqa: E402
-from . import distributions, ppl, transforms  # noqa: E402
+from . import distributions, parallel, ppl, transforms  # noqa: E402
 
 __all__ = [
     "MuseProblem", "SimpleMuseProblem", "MuseResult", "load_result", "muse",
     "muse_fit", "get_J", "get_H", "check_self_consistency", "ThetaSpec",
-    "PPLMuseProblem", "model_problem", "distributions", "ppl", "transforms",
+    "PPLMuseProblem", "model_problem", "distributions", "parallel", "ppl",
+    "transforms",
 ]
 
 __version__ = "0.3.0"

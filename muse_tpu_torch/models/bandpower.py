@@ -44,8 +44,9 @@ import torch
 
 from ..adapters.simple import SimpleMuseProblem
 from ..utils.keys import lane_generator
-from .grf import (GrfConfig, _herm_white_draw, _herm_white_tensors, _host,
-                  _packed_diag_pcg, pack_field_host)
+from .grf import (GrfConfig, _field_share, _herm_white_draw,
+                  _herm_white_tensors, _host, _packed_diag_pcg,
+                  _set_field, pack_field_host)
 
 __all__ = ["band_edges", "bandpower_problem", "bandpower_mle"]
 
@@ -106,44 +107,54 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
     for the closed-form oracle. ``solver="cg"`` (default) is the batched
     diagonal-operator PCG through the fused kernel, ``"direct"`` the
     per-mode Wiener closed form, ``"lbfgs"`` the generic batched L-BFGS.
-    ``mesh`` is not ported yet (ROADMAP Queue 1 item 10).
+
+    ``mesh``: as for ``grf_spectral_problem``, a field axis gives this rank
+    the rows ``mesh.field_rows(n)`` of the packed grid. ``band_sum`` then
+    sums, per band, the sorted slice of the rank's own coordinates, and
+    the solver's field reduction turns the partial (nbands,) vectors into
+    the global one, in a fixed order (a rerun is bitwise equal).
     """
     if solver not in ("cg", "direct", "lbfgs"):
         raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
                          f"{solver!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "bandpower_problem(mesh=...) is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+    cols, rows, reduce = _field_share(mesh, n, solver, "bandpower_problem")
+    if cols != slice(None) and x_obs is None:
+        # the data, drawn whole as without a mesh
+        x_obs = bandpower_problem(n, nbands, sigma_noise=sigma_noise,
+                                  gamma=gamma, k0=k0, theta_true=theta_true,
+                                  data_seed=data_seed, solver="direct",
+                                  device=device).x
     cfg = GrfConfig(n, sigma_noise, gamma, k0, False, device=device)
     dev = cfg.device
     s2 = sigma_noise ** 2
     nr = n // 2 + 1
-    grid = (n, 2 * nr)       # the kernels' (n, 2m) view of a packed (L,)
+    # the kernels' (rows, 2m) view of this rank's packed coordinates
+    grid = (rows, 2 * nr)
     sqw_n_host = np.sqrt(_herm_weight64(n)) / n
     coeffs = _herm_white_tensors(n, dev)
 
     k64 = _k_grid64(n)
     edges = band_edges(n, nbands)
     band_grid = np.searchsorted(edges, k64, side="right")
-    band_host = np.tile(band_grid.reshape(-1), 2)
+    band_host = np.tile(band_grid.reshape(-1), 2)[cols]
     band_idx = torch.tensor(band_host, dtype=torch.int64, device=dev)
-    # the packed coordinates sorted by band, once: band b is the slice
-    # [starts[b], starts[b+1]) of the permuted vector
+    # this rank's packed coordinates sorted by band, once: band b is the
+    # slice [starts[b], starts[b+1]) of the permuted vector
     order = torch.tensor(np.argsort(band_host, kind="stable"), device=dev)
     starts = np.concatenate([[0], np.cumsum(np.bincount(band_host,
                                                         minlength=nbands))])
     # the base spectrum per packed coordinate (the shape at θ = 0)
     P0 = torch.tensor(np.tile(((k64 + k0) ** (-gamma)).astype(np.float32)
-                              .reshape(-1), 2), device=dev)
+                              .reshape(-1), 2)[cols], device=dev)
 
     def _C2(theta):
         """C per packed coordinate: P0 · exp(θ_band)."""
         return P0 * torch.exp(cfg.theta_tensor(theta)[band_idx])
 
     def band_sum(q):
-        """Σ over each band's coordinates of a packed (L,) vector → the
-        (nbands,) sums, in a fixed order (a rerun is bitwise equal)."""
+        """Σ over each band's coordinates of a packed (L,) vector (this
+        rank's slice of one under a field axis) → the (nbands,) sums, in a
+        fixed order (a rerun is bitwise equal)."""
         qs = q[order]
         return torch.stack([qs[starts[b]:starts[b + 1]].sum()
                             for b in range(nbands)])
@@ -152,8 +163,8 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
     # θ-independent, so the muse loop hoists the RNG out of the iteration
     # and only the √C(θ) scaling re-runs per step
     def sample_white(gen):
-        return (_herm_white_draw(gen, n, coeffs),
-                _herm_white_draw(gen, n, coeffs))
+        return (_herm_white_draw(gen, n, coeffs)[cols],
+                _herm_white_draw(gen, n, coeffs)[cols])
 
     def x_of_white(W, theta):
         ut, et = W
@@ -182,7 +193,8 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
         """Batched PCG with the diagonal operator A = 1 + C/σ²: no FFT."""
         C2 = _C2(th_flat)[None]
         return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
-                                atol, cg_maxiter, grid)
+                                atol, cg_maxiter, grid, nz=2 * n * nr,
+                                reduce=reduce)
 
     def zhat_direct(xs, Z0, th_flat, atol):
         C2 = _C2(th_flat)[None]
@@ -203,12 +215,14 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
                              device=dev)
 
     prob = SimpleMuseProblem(
-        x_obs, sample_x_z, log_like, log_prior,
+        x_obs[cols], sample_x_z, log_like, log_prior,
         custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
                      "lbfgs": None}[solver],
         grad_theta_log_like=grad_theta, device=dev,
         sample_white=sample_white, x_of_white=x_of_white)
+    prob.name = "bandpower_problem"
     prob.grf_config = cfg
+    _set_field(prob, mesh, cols, 2 * n * nr)
     prob.nbands = nbands
     prob.band_edges = edges
     prob.band_sum = band_sum

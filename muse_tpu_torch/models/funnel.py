@@ -71,8 +71,10 @@ def funnel_problem(dim: int = 512, *, x_obs=None, theta_true: float = 0.0,
 
     x = _data(x_obs, sample_x_z, torch.tensor(float(theta_true), device=dev),
               data_seed, dev)
-    return SimpleMuseProblem(x, sample_x_z, log_like, log_prior, device=dev,
+    prob = SimpleMuseProblem(x, sample_x_z, log_like, log_prior, device=dev,
                              sample_white=sample_white, x_of_white=x_of_white)
+    prob.name = "funnel_problem"
+    return prob
 
 
 def vector_funnel_problem(dim: int = 256, blocks: int = 4, *, x_obs=None,
@@ -105,8 +107,10 @@ def vector_funnel_problem(dim: int = 256, blocks: int = 4, *, x_obs=None,
     th_true = torch.zeros(blocks, device=dev) if theta_true is None else \
         torch.as_tensor(np.asarray(theta_true, np.float32), device=dev)
     x = _data(x_obs, sample_x_z, th_true, data_seed, dev)
-    return SimpleMuseProblem(x, sample_x_z, log_like, log_prior, device=dev,
+    prob = SimpleMuseProblem(x, sample_x_z, log_like, log_prior, device=dev,
                              sample_white=sample_white, x_of_white=x_of_white)
+    prob.name = "vector_funnel_problem"
+    return prob
 
 
 def funnel_analytic_H(theta0: float, dim: int) -> float:

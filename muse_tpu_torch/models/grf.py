@@ -138,7 +138,8 @@ def _unpack_spectrum(zt: torch.Tensor, sqw_n: torch.Tensor) -> torch.Tensor:
     return torch.complex(re, im).reshape(zt.shape[:-1] + sqw_n.shape) / sqw_n
 
 
-def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None):
+def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None,
+                     reduce=None):
     """Batched PCG on the diagonal system A·z = b in packed coordinates,
     preconditioned by the exact inverse 1/A. ``A`` is (1, L), ``b`` and the
     warm start ``Z0`` are (B, L), and ``grid`` = (n, 2m) is the kernels'
@@ -151,13 +152,21 @@ def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None):
     follows the solver-wide ∇z tolerance, an ABSOLUTE gradient norm:
     ``atol``·√nz (the L∞→L2 envelope; ``nz`` is the latent's length, L
     unless the caller's latent lives in pixels) over ‖b‖ is the per-lane
-    relative tolerance that ``batched_cg`` takes."""
+    relative tolerance that ``batched_cg`` takes.
+
+    Under a field axis the vectors are this rank's rows of the grid,
+    ``grid`` is their (rows, 2m) view, ``nz`` the WHOLE latent's length and
+    ``reduce`` the mesh's field sum: ‖b‖ and every sum of the loop are
+    global, and the kernel still computes each launch's local part."""
     from ..ops.cg import batched_cg
     from ..ops.grf_spectrum import spectrum_quadform_and_grad
 
     A_grid = A.reshape(grid)
     r0 = b - A * Z0
-    b_norm = torch.linalg.vector_norm(b, dim=-1)
+    if reduce is None:
+        b_norm = torch.linalg.vector_norm(b, dim=-1)
+    else:
+        b_norm = torch.sqrt(reduce(torch.sum(b * b, -1)))
     rel_tol = atol * float(np.sqrt(np.float32(nz or Z0.shape[1]))) / \
         torch.clamp(b_norm, min=1e-30)
 
@@ -169,10 +178,44 @@ def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None):
     res = batched_cg(None, None, Z0, tol=rel_tol, maxiter=cg_maxiter,
                      precond=lambda R: R / A, r0=r0, z0=r0 / A,
                      b_norm=b_norm,
-                     matvec_and_curvature=matvec_and_curvature)
+                     matvec_and_curvature=matvec_and_curvature,
+                     reduce=reduce)
     return res.x, {"converged": res.converged,
                    "failed": ~torch.isfinite(res.r_norm),
                    "iterations": res.iterations, "g_norm": res.r_norm}
+
+
+def _field_share(mesh, n: int, solver: str, who: str):
+    """This rank's share of a packed (n, 2m) grid under ``mesh``: (the
+    slice of a packed (L,) vector it holds, the count of its rows, the sum
+    over the field axis of a per-lane partial sum). Without a field axis:
+    every row, ``slice(None)`` and no sum. A field axis needs a solver whose
+    sums over the latent take the mesh's reduction (not the generic
+    L-BFGS)."""
+    if mesh is None:
+        return slice(None), n, None
+    from ..parallel.mesh import SimsMesh
+    if not isinstance(mesh, SimsMesh):
+        raise TypeError(f"{who}: mesh must be a SimsMesh "
+                        f"(parallel.make_sims_mesh), got {type(mesh).__name__}")
+    if mesh.field_axis is None:
+        return slice(None), n, None
+    if solver == "lbfgs":
+        raise ValueError(f"{who}(solver='lbfgs') cannot take a field axis: "
+                         "the generic L-BFGS sums over whole lanes")
+    rows = mesh.field_rows(n)
+    m2 = 2 * (n // 2 + 1)
+    return (slice(rows.start * m2, rows.stop * m2), rows.stop - rows.start,
+            mesh.reduce_field)
+
+
+def _set_field(prob, mesh, cols, size: int):
+    """Mark ``prob`` as holding the slice ``cols`` of its length-``size``
+    latent on ``mesh``'s field axis (``MuseProblem.field_mesh``)."""
+    if mesh is not None and mesh.field_axis is not None:
+        prob.field_mesh = mesh
+        prob.field_slice = cols
+        prob.field_size = size
 
 
 class GrfConfig:
@@ -268,8 +311,10 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
       * ``fft_mode``: ``"auto"`` and ``"fft"`` are ``torch.fft``. The
         einsum DFT (``"matmul"``) exists in the JAX package for sharded
         layouts that XLA's FFT rejects and is not ported (ROADMAP, "Left
-        out on purpose"). ``mesh`` is not ported yet (ROADMAP Queue 1 item
-        10).
+        out on purpose").
+      * ``mesh``: a sims-only :class:`~muse_tpu_torch.parallel.SimsMesh`
+        is taken (the solver shards the sims). A field axis needs a
+        distributed 2D FFT and raises (ROADMAP Queue 1 item 14).
 
     ``x_obs`` (an (n, n) array or tensor) is the data; without it the data
     are drawn at ``theta_true`` from ``data_seed``. ``config``, when given,
@@ -290,9 +335,16 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
             "of XLA's FFT under sharding and is left out of the port "
             "(ROADMAP, 'Left out on purpose')")
     if mesh is not None:
-        raise NotImplementedError(
-            "grf_problem(mesh=...) is not ported yet (ROADMAP Queue 1 item "
-            "10)")
+        from ..parallel.mesh import SimsMesh
+        if not isinstance(mesh, SimsMesh):
+            raise TypeError("grf_problem: mesh must be a SimsMesh "
+                            f"(parallel.make_sims_mesh), got "
+                            f"{type(mesh).__name__}")
+        if mesh.field_axis is not None:
+            raise NotImplementedError(
+                "grf_problem(mesh=...) with a field axis needs a distributed "
+                "2D FFT (pencil transposes through all_to_all), not ported "
+                "yet (ROADMAP Queue 1 item 14); a sims-only mesh works")
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
                               device=device)
     n = cfg.n
@@ -397,6 +449,7 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                      "lbfgs": None}[solver],
         grad_theta_log_like=grad_theta, device=dev,
         sample_white=sample_white, x_of_white=x_of_white)
+    prob.name = "grf_problem"
     prob.grf_config = cfg
 
     def h_precond(w, x, th_flat):
@@ -473,6 +526,7 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
 
     prob = SimpleMuseProblem(x_obs, sample_x_z, log_like, log_prior,
                              custom_zhat=zhat_wiener, device=dev)
+    prob.name = "grf_field_problem"
     prob.grf_config = cfg
     return prob
 
@@ -512,9 +566,18 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     ``x_obs`` may be a real (n, n) field (packed on the host in float64)
     or an already packed (L,) vector; without it the data are drawn at
     ``theta_true`` from ``data_seed``. ``prob.x_real`` holds the pixel
-    field for closed-form oracles (:func:`grf_marginal_mle`).
-    ``mesh`` is not ported yet (ROADMAP Queue 1 item 10). ``config``, when
-    given, fixes the device.
+    field for closed-form oracles (:func:`grf_marginal_mle`). ``config``,
+    when given, fixes the device.
+
+    ``mesh``: a :class:`~muse_tpu_torch.parallel.SimsMesh`. Its sims axis
+    is the solver's business. Under a field axis of size f this rank holds
+    the rows ``mesh.field_rows(n)`` of the packed (n, 2m) grid, for every
+    lane and every constant: x, z, the whites and C are (…, n/f · 2m)
+    slices, the kernels run on (B, n/f, 2m), and the solver sums the
+    θ-score and the PCG's dot products over the field axis. The whites are
+    drawn whole from each lane's generator and cut to the rank's rows, so
+    every sim is the one drawn without a mesh; the data are drawn whole
+    too. ``solver="lbfgs"`` cannot take a field axis.
     """
     from ..ops.grf_spectrum import spectrum_quadform
 
@@ -524,25 +587,30 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     if solver not in ("cg", "direct", "lbfgs"):
         raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
                          f"{solver!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "grf_spectral_problem(mesh=...) is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
                               device=device)
     n = cfg.n
+    cols, rows, reduce = _field_share(mesh, n, solver,
+                                      "grf_spectral_problem")
+    if cols != slice(None) and x_obs is None:
+        # the data, drawn whole as without a mesh
+        x_obs = grf_spectral_problem(cfg, theta_true=theta_true,
+                                     data_seed=data_seed, solver="direct",
+                                     noise=noise).x
     s2 = cfg.sigma_noise ** 2
     dev = cfg.device
     nr = n // 2 + 1
-    grid = (n, 2 * nr)       # the kernels' (n, 2m) view of a packed (L,)
+    # the kernels' (rows, 2m) view of this rank's packed coordinates
+    grid = (rows, 2 * nr)
     sqw_n = torch.sqrt(cfg.herm_weight) / n
     sqw_n_host = np.sqrt(np.asarray(_host(cfg.herm_weight), np.float64)) / n
-    logk_tiled = torch.log(cfg.k + cfg.k0).reshape(-1).repeat(2)
+    logk_tiled = torch.log(cfg.k + cfg.k0).reshape(-1).repeat(2)[cols]
     coeffs = _herm_white_tensors(n, dev)
 
     def _C2(theta):
-        """Spectrum per packed coordinate: C_k tiled over (re, im)."""
-        return cfg.spectrum(theta).reshape(-1).repeat(2)
+        """Spectrum per packed coordinate of this rank: C_k tiled over
+        (re, im)."""
+        return cfg.spectrum(theta).reshape(-1).repeat(2)[cols]
 
     def pack_field(v):
         """Real (n, n) field → packed (L,) on the device."""
@@ -559,12 +627,12 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     if noise == "fft":
         def sample_white(gen):
             return tuple(pack_field(torch.randn((n, n), generator=gen,
-                                                device=dev))
+                                                device=dev))[cols]
                          for _ in range(2))
     else:
         def sample_white(gen):
-            return (_herm_white_draw(gen, n, coeffs),
-                    _herm_white_draw(gen, n, coeffs))
+            return (_herm_white_draw(gen, n, coeffs)[cols],
+                    _herm_white_draw(gen, n, coeffs)[cols])
 
     if noise == "marginal":
         # x̃ ~ N(0, C+σ²) and ũ|x̃ ~ N(√C x̃/(C+σ²), σ²/(C+σ²)): the same
@@ -612,7 +680,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         """Batched PCG with the diagonal operator A = 1 + C/σ²."""
         C2 = _C2(th_flat)[None]
         return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
-                                atol, cg_maxiter, grid)
+                                atol, cg_maxiter, grid, nz=2 * n * nr,
+                                reduce=reduce)
 
     def zhat_direct(xs, Z0, th_flat, atol):
         C2 = _C2(th_flat)[None]
@@ -634,13 +703,15 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
                              device=dev)
 
     prob = SimpleMuseProblem(
-        x_obs, sample_x_z, log_like, log_prior,
+        x_obs[cols], sample_x_z, log_like, log_prior,
         custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
                      "lbfgs": None}[solver],
         grad_theta_log_like=grad_theta, device=dev,
         sample_white=sample_white, x_of_white=x_of_white,
         x_white_parts=(0,) if noise == "marginal" else None)
+    prob.name = "grf_spectral_problem"
     prob.grf_config = cfg
+    _set_field(prob, mesh, cols, 2 * n * nr)
     prob.x_real = unpack_field(x_obs)     # for closed-form oracles
     prob.pack_field = pack_field
     prob.unpack_field = unpack_field

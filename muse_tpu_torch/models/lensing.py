@@ -517,6 +517,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
                              grad_theta_log_like=grad_theta, device=dev,
                              sample_white=sample_white,
                              x_of_white=x_of_white)
+    prob.name = "lensing_problem"
     prob.lensing_n = n
     # the resolved budgets, open to inspection (the n-dependent defaults
     # are policy; explicit keyword arguments pass through)

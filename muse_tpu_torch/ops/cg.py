@@ -16,6 +16,13 @@ Two consumers, as in the JAX package: the packed GRF's latent MAP
 product). ``matvec_and_curvature`` lets a caller hand over ``(A p, pᵀA p)``
 from one fused evaluation (the GRF's ``spectrum_quadform_and_grad``
 kernel) in place of ``matvec`` plus a separate ``sum(p·Ap)``.
+
+Under the field axis of a mesh (``parallel/mesh.py``) each rank holds a
+slice of every lane's vector. ``reduce`` turns each per-lane sum over that
+slice into the sum over the whole vector (``SimsMesh.reduce_field``): the
+loop's dot products and squared norms are reduced, two of them stacked
+into one call where they fall together, so every rank of a field group
+reaches the same done-mask and runs the same number of steps.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ def batched_cg(
     z0: Optional[torch.Tensor] = None,
     b_norm: Optional[torch.Tensor] = None,
     matvec_and_curvature: Optional[Callable] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> BatchedCgResult:
     """Solve SPD systems ``A x = b`` for a batch of lanes in lockstep.
 
@@ -66,6 +74,11 @@ def batched_cg(
         preconditioned residual ``M⁻¹ r0`` and ‖b‖ per lane.
       matvec_and_curvature: optional ``p -> (A p, Σ p·A p per lane)``, used
         by the loop in place of ``matvec`` and the separate dot product.
+      reduce: optional hook applied to every per-lane sum over the latent
+        axis (``rz``, ``pAp``, the squared norms behind ‖r‖ and ‖b‖): a
+        rank's partial sum in, the global sum out. With None the lanes'
+        vectors are whole and the loop is what it always was. A given
+        ``b_norm`` must already be global.
 
     ``batched_cg.curvature_steps`` counts the loop steps that called
     ``matvec_and_curvature``.
@@ -74,10 +87,25 @@ def batched_cg(
         if b is None:
             raise ValueError("batched_cg: need b (or a precomputed r0)")
         r0 = b - matvec(torch.zeros_like(b) if x0 is None else x0)
+    if reduce is None:
+        def norm(v):
+            return torch.linalg.vector_norm(v, dim=-1)
+
+        def dot_and_norm(a, b, v):
+            return torch.sum(a * b, -1), norm(v)
+    else:
+        def norm(v):
+            return torch.sqrt(reduce(torch.sum(v * v, -1)))
+
+        def dot_and_norm(a, b, v):
+            s = reduce(torch.stack([torch.sum(a * b, -1),
+                                    torch.sum(v * v, -1)]))
+            return s[0], torch.sqrt(s[1])
+
     if b_norm is None:
         if b is None:
             raise ValueError("batched_cg: need b_norm when r0 is given")
-        b_norm = torch.linalg.vector_norm(b, dim=-1)
+        b_norm = norm(b)
     if matvec is None and matvec_and_curvature is None:
         raise ValueError("batched_cg: need matvec or matvec_and_curvature")
     B = r0.shape[0]
@@ -88,12 +116,9 @@ def batched_cg(
     z = Minv(r0) if z0 is None else z0
     thresh = tol * torch.clamp(b_norm, min=1e-30)
 
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
-
     r, p = r0, z
-    rz = torch.sum(r0 * z, -1)
-    done = norm(r0) < thresh
+    rz, r_norm = dot_and_norm(r0, z, r0)
+    done = r_norm < thresh
     iters = torch.zeros((B,), dtype=torch.int32, device=r0.device)
     next_check = 0
     for k in range(maxiter):
@@ -107,19 +132,21 @@ def batched_cg(
         else:
             Ap = matvec(p)
             pAp = torch.sum(p * Ap, -1)
+        if reduce is not None:
+            pAp = reduce(pAp)
         alpha = rz / torch.where(pAp > 0, pAp, torch.ones_like(pAp))
         alpha = torch.where(done | (pAp <= 0), torch.zeros_like(alpha), alpha)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * Ap
         z = Minv(r)
-        rz1 = torch.sum(r * z, -1)
+        rz1, r_norm = dot_and_norm(r, z, r)
         beta = torch.where(done, torch.zeros_like(rz1),
                            rz1 / torch.where(rz == 0, torch.ones_like(rz), rz))
         p = torch.where(done[:, None], p, z + beta[:, None] * p)
         iters = iters + (~done).to(torch.int32)
-        done = done | (norm(r) < thresh) | ~torch.isfinite(rz1)
+        done = done | (r_norm < thresh) | ~torch.isfinite(rz1)
         rz = rz1
-    return BatchedCgResult(x=x, r_norm=norm(r), converged=done,
+    return BatchedCgResult(x=x, r_norm=r_norm, converged=done,
                            iterations=iters)
 
 

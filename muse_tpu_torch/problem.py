@@ -91,6 +91,19 @@ class MuseProblem:
     #: others; ``x_of_white`` then returns ``(x, None)``.
     x_white_parts: Optional[Tuple[int, ...]] = None
 
+    #: the model's name for messages (a model constructor sets it).
+    name: Optional[str] = None
+
+    #: the :class:`~muse_tpu_torch.parallel.SimsMesh` whose field axis
+    #: shards this problem's latent, or None. A model that supports a field
+    #: axis sets it, with ``field_slice`` (this rank's slice of the flat
+    #: latent) and ``field_size`` (the whole latent's length); its
+    #: ``log_like`` and ``grad_theta_log_like`` are then this rank's partial
+    #: sums over its coordinates, which the solver sums over the axis.
+    field_mesh = None
+    field_slice: slice = slice(None)
+    field_size: Optional[int] = None
+
     def sample_x_z(self, generator: torch.Generator, theta) -> Tuple[Any, Any]:
         """Joint forward sample ``(x, z) ~ P(x, z | θ)``, a deterministic
         function of the generator's seed (common random numbers)."""

@@ -31,6 +31,15 @@ dicts of tensors): z is flattened per lane by a :class:`TreeSpec`, and
 x's leaves are stacked, mixed and indexed leaf by leaf. The JAX package's
 ``optimization_barrier`` fences, odd-lane padding and value certifier
 guard against faults of the TPU compiler and have no counterpart here.
+
+A problem whose latent is sharded over the field axis of a mesh
+(``problem.field_mesh``, ``parallel/mesh.py``) computes per-lane sums over
+this rank's coordinates only. The θ-scores, implicit H's contractions over
+z and its CG's dot products are then summed over the field axis, each
+AFTER its ``vmap``: no collective runs inside a ``torch.func`` transform.
+Such a problem's ``log_like`` must be a pure sum over coordinates (no
+per-lane term outside the sum, which the reduction would count once per
+rank), so a θ-bijector, whose volume term is such a term, is refused.
 """
 
 from __future__ import annotations
@@ -74,6 +83,17 @@ class CompiledProblem:
         self.zspec = TreeSpec(z0)
         self.nz = self.zspec.n
         self.x_obs = tree_map(lambda v: v.to(self.device), problem.x)
+        self.field = problem.field_mesh
+        if self.field is not None and problem.theta_bijector is not None:
+            raise ValueError(
+                f"{problem.name or type(problem).__name__} shards its latent "
+                "over a field axis and has a θ-bijector: the log-volume term "
+                "is not a sum over coordinates")
+
+    def _field_sum(self, t):
+        """``t``, a per-lane sum over this rank's coordinates, summed over
+        the field axis (``t`` itself without one)."""
+        return t if self.field is None else self.field.reduce_field(t)
 
     def theta(self, th_flat) -> torch.Tensor:
         """A flat θ (numpy or tensor) on the device in the working dtype."""
@@ -125,9 +145,9 @@ class CompiledProblem:
                 g = self.problem.grad_theta_log_like(
                     x, self.zspec.unflatten(z), self.spec.unflatten(th_flat))
                 return self.spec.flatten(g).to(self.dtype)
-            return vmap(one)(xs, Z)
-        return vmap(lambda x, z: grad(
-            lambda t: self._ll(x, z, t))(th_flat))(xs, Z)
+            return self._field_sum(vmap(one)(xs, Z))
+        return self._field_sum(vmap(lambda x, z: grad(
+            lambda t: self._ll(x, z, t))(th_flat))(xs, Z))
 
     # ------------------------------------------------------------ #
     # batched MAP solve (ẑ_at_θ, all lanes at once)
@@ -374,12 +394,17 @@ class CompiledProblem:
         M = None if precond is None else (
             lambda R: vmap(lambda w, x: precond(w, x, th))(R, x_l))
         rhs = -dFdth1.transpose(1, 2).reshape(S * nth, self.nz)
+        fsum = None if self.field is None else self._field_sum
         res = batched_cg(neg_hvp, rhs, tol=cg_tol, maxiter=cg_maxiter,
-                         precond=M)
+                         precond=M, reduce=fsum)
         Y = res.x.reshape(S, nth, self.nz)               # rows: A⁻¹ columns
         H2 = -torch.einsum("szi,sjz->sij", dFdth, Y)
-        resid = torch.linalg.vector_norm(neg_hvp(res.x) - rhs, dim=-1)
-        return H1 + H2, resid.reshape(S, nth)
+        d = neg_hvp(res.x) - rhs
+        if fsum is None:
+            return H1 + H2, torch.linalg.vector_norm(d, dim=-1).reshape(S, nth)
+        # H1 and H2 are sums over z: one field sum of both, and of ‖d‖²
+        H = fsum(H1 + H2)
+        return H, torch.sqrt(fsum(torch.sum(d * d, -1))).reshape(S, nth)
 
     @property
     def certifier(self):

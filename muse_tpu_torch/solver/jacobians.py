@@ -19,7 +19,12 @@ Counterpart of ``muse_tpu/solver/jacobians.py`` (``get_J!``, reference
     problem's CRN white split.
 
 Both also take a PPL model function with ``observed=`` in place of the
-problem (src/turing.jl:248-256).
+problem (src/turing.jl:248-256), and a ``mesh=``
+(:class:`~muse_tpu_torch.parallel.SimsMesh`): each chunk's sims are split
+over its sims axis, each rank runs its block, and the per-sim results are
+gathered to every rank before anything is reduced, so every rank holds
+the same ``gs``, ``Hs``, J and H. Only global rank 0 writes
+``checkpoint_file`` and draws progress.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from ..utils.keys import sim_seeds
 from ..utils.progress import ProgressReporter
 from .compiled import CompiledProblem
 from .covariance import finalize_result
-from .muse import _as_problem
+from .muse import _as_problem, check_mesh, gather_lanes, lead
 
 __all__ = ["get_J", "get_H", "sample_covariance"]
 
@@ -54,7 +59,7 @@ def _seed_chunks(seeds, max_batch):
 
 
 def _setup(result: MuseResult, problem: MuseProblem, theta0, seed, dtype,
-           compiled: Optional[CompiledProblem]):
+           compiled: Optional[CompiledProblem], mesh):
     from .muse import _as_seed, _host_flat, resolve_spec
 
     theta_start = theta0 if theta0 is not None else result.theta
@@ -68,7 +73,27 @@ def _setup(result: MuseResult, problem: MuseProblem, theta0, seed, dtype,
         result.theta_struct = spec.to_user(th)
     result.key = seed = _as_seed(seed, result)
     comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    check_mesh(problem, comp, mesh)
     return spec, th, seed, comp
+
+
+def _block(mesh, c: int) -> tuple:
+    """This rank's block (lo, hi) of a chunk of ``c`` sims."""
+    return (0, c) if mesh is None else mesh.lane_block(c)
+
+
+def _chunk_table(mesh, c: int, width: int, columns) -> np.ndarray:
+    """The (c, width) float64 table of a chunk's per-sim results on every
+    rank: this rank runs ``columns(lo, hi)`` on its block of sims (arrays
+    with hi − lo rows, laid side by side) and the blocks are gathered over
+    the sims axis."""
+    lo, hi = _block(mesh, c)
+    local = np.zeros((hi - lo, width))
+    if hi > lo:
+        local = np.column_stack([
+            np.asarray(v, np.float64).reshape(hi - lo, -1)
+            for v in columns(lo, hi)])
+    return gather_lanes(mesh, local, lo, c)
 
 
 def get_J(
@@ -88,6 +113,7 @@ def get_J(
     warn_reuse: bool = True,
     checkpoint_file: Optional[str] = None,
     observed=None,
+    mesh=None,
 ) -> MuseResult:
     """Monte-Carlo covariance of MAP score gradients at θ₀ (``get_J!``).
 
@@ -99,7 +125,8 @@ def get_J(
     """
     problem = _as_problem(problem, theta0, observed, "get_J")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
-                                  compiled)
+                                  compiled, mesh)
+    nth = th.shape[0]
     nsims_existing = len(result.gs)
     nsims_remaining = nsims - nsims_existing
 
@@ -146,14 +173,22 @@ def get_J(
                      if gs_mask is not None
                      else [True] * nsims_existing)
         th_dev = comp.theta(th)
-        pbar = ProgressReporter(nsims_remaining, "get_J", enabled=progress)
+        pbar = ProgressReporter(nsims_remaining, "get_J",
+                                enabled=progress and lead(mesh))
         try:
             for chunk in _seed_chunks(seeds, max_batch):
                 c = len(chunk)
-                out = comp.j_sims(chunk, th_dev, grad_z_atol)
-                g_c = out["g"].detach().cpu().numpy().astype(np.float64)
-                failed_c = out["failed"].cpu().numpy()
-                nonconv_c = ~out["converged"].cpu().numpy() & ~failed_c
+
+                def columns(lo, hi):
+                    out = comp.j_sims(chunk[lo:hi], th_dev, grad_z_atol)
+                    return (out["g"].detach().cpu().numpy(),
+                            out["failed"].cpu().numpy(),
+                            out["converged"].cpu().numpy())
+
+                table = _chunk_table(mesh, c, nth + 2, columns)
+                g_c = table[:, :nth]
+                failed_c = table[:, nth] > 0
+                nonconv_c = ~(table[:, nth + 1] > 0) & ~failed_c
                 n_nonconv += int(nonconv_c.sum())
                 n_run += c
                 if failed_c.any():
@@ -169,7 +204,7 @@ def get_J(
                 result.metadata["gs_converged"] = np.asarray(mask_list, bool)
                 drop_new.extend(list(nonconv_c if skip_errors
                                      else np.zeros(len(g_c), bool)))
-                if checkpoint_file is not None:
+                if checkpoint_file is not None and lead(mesh):
                     result.save(checkpoint_file)
                 pbar.step(inc=c)
         finally:
@@ -221,6 +256,7 @@ def get_H(
     progress: bool = False,
     checkpoint_file: Optional[str] = None,
     observed=None,
+    mesh=None,
 ) -> MuseResult:
     """Mean Jacobian of the MAP score wrt the sim-generation θ (``get_H!``).
 
@@ -258,7 +294,7 @@ def get_H(
 
     problem = _as_problem(problem, theta0, observed, "get_H")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
-                                  compiled)
+                                  compiled, mesh)
     ntheta = th.shape[0]
     nsims_existing = len(result.Hs)
     nsims_remaining = nsims - nsims_existing
@@ -273,7 +309,7 @@ def get_H(
         _implicit_H(result, comp, seeds, th_dev, implicit_fit_atol,
                     implicit_diff_cg_maxiter, implicit_diff_cg_tol,
                     implicit_diff_H1_is_zero, implicit_diff_precond,
-                    skip_errors, max_batch, progress, checkpoint_file)
+                    skip_errors, max_batch, progress, checkpoint_file, mesh)
         _reduce_H(result, comp)
         return result
 
@@ -314,7 +350,7 @@ def get_H(
     adaptive = fd_order == "adaptive"
     n_fd = ntheta * len(offsets)
     pbar = ProgressReporter(nsims_remaining * (1 + n_fd), "get_H",
-                            enabled=progress)
+                            enabled=progress and lead(mesh))
     # the fiducial MAPs do not depend on the step: later adaptive rounds
     # reuse round 1's, chunk by chunk
     fid = []
@@ -324,21 +360,32 @@ def get_H(
         failed_c)`` takes each chunk as it completes; without it the pass
         returns every chunk's g and failed flags, concatenated."""
         g_parts, failed_parts = [], []
+        g_shape = (ntheta, len(offsets), ntheta)
         for ci, chunk in enumerate(_seed_chunks(seeds, max_batch)):
             c = len(chunk)
+            lo, hi = _block(mesh, c)
             if ci < len(fid):
                 Zfid = fid[ci]
             else:
                 # warm starts for every FD evaluation (src/muse.jl:417-423;
                 # each sim uses its own seed)
-                Zfid = comp.h_fiducial(chunk, th_dev, grad_z_atol)["Z"]
+                Zfid = (comp.h_fiducial(chunk[lo:hi], th_dev,
+                                        grad_z_atol)["Z"] if hi > lo
+                        else None)
                 if adaptive:
                     fid.append(Zfid)
                 pbar.step(inc=c, msg="fiducial fits")
-            out = comp.h_fd(chunk, th_dev, step_now, Zfid, grad_z_atol,
-                            offsets)
-            g_c = out["g"].detach().cpu().numpy().astype(np.float64)
-            failed_c = out["failed"].cpu().numpy().any(axis=(1, 2))
+
+            def columns(lo, hi):
+                out = comp.h_fd(chunk[lo:hi], th_dev, step_now, Zfid,
+                                grad_z_atol, offsets)
+                return (out["g"].detach().cpu().numpy(),
+                        out["failed"].cpu().numpy().any(axis=(1, 2)))
+
+            table = _chunk_table(mesh, c, int(np.prod(g_shape)) + 1,
+                                 columns)
+            g_c = table[:, :-1].reshape((c,) + g_shape)
+            failed_c = table[:, -1] > 0
             if commit is not None:
                 commit(g_c, failed_c)
             else:
@@ -357,7 +404,7 @@ def get_H(
                 Hs_c, dropped = to_Hs(g_c, failed_c, step)
                 n_dropped += dropped
                 result.Hs.extend(list(Hs_c))
-                if checkpoint_file is not None:
+                if checkpoint_file is not None and lead(mesh):
                     result.save(checkpoint_file)
 
             fd_pass(step, commit)
@@ -384,10 +431,12 @@ def get_H(
                 if np.all((ratio > 0.1) & (ratio < 10.0)):
                     break                        # balanced within 10×
                 step = step * np.clip(ratio ** (1.0 / 3.0), 0.05, 20.0)
+                if mesh is not None:
+                    step = mesh.broadcast_host(step)    # rank 0's next step
             result.metadata["fd_adaptive"] = rounds
             Hs, n_dropped = to_Hs(g, failed, step_used)
             result.Hs.extend(list(Hs))
-            if checkpoint_file is not None:
+            if checkpoint_file is not None and lead(mesh):
                 result.save(checkpoint_file)
     finally:
         pbar.close()
@@ -400,19 +449,27 @@ def get_H(
 
 def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,
                 h1_is_zero, precond, skip_errors, max_batch, progress,
-                checkpoint_file):
+                checkpoint_file, mesh):
     """get_H's implicit-diff mode, one device chunk of sims at a time."""
     h_impl = comp.h_implicit_with(precond)
     resid_store = result.metadata.setdefault("implicit_diff_cg_resid", [])
+    nth = th_dev.shape[0]
     n_dropped = 0
-    pbar = ProgressReporter(len(seeds), "get_H", enabled=progress)
+    pbar = ProgressReporter(len(seeds), "get_H",
+                            enabled=progress and lead(mesh))
     try:
         for chunk in _seed_chunks(seeds, max_batch):
             c = len(chunk)
-            Hs_c, resid_c = h_impl(chunk, th_dev, fit_atol, cg_maxiter,
-                                   cg_tol, h1_is_zero)
-            Hs_c = Hs_c.detach().cpu().numpy().astype(np.float64)
-            resid_c = resid_c.detach().cpu().numpy()
+
+            def columns(lo, hi):
+                Hs_c, resid_c = h_impl(chunk[lo:hi], th_dev, fit_atol,
+                                       cg_maxiter, cg_tol, h1_is_zero)
+                return (Hs_c.detach().cpu().numpy(),
+                        resid_c.detach().cpu().numpy())
+
+            table = _chunk_table(mesh, c, nth * nth + nth, columns)
+            Hs_c = table[:, :nth * nth].reshape(c, nth, nth)
+            resid_c = table[:, nth * nth:].astype(np.float32)
             bad = ~np.isfinite(Hs_c).all(axis=(1, 2))
             if bad.any():
                 if not skip_errors:
@@ -423,7 +480,7 @@ def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,
                 Hs_c, resid_c = Hs_c[~bad], resid_c[~bad]
             result.Hs.extend(list(Hs_c))
             resid_store.extend(list(resid_c))
-            if checkpoint_file is not None:
+            if checkpoint_file is not None and lead(mesh):
                 result.save(checkpoint_file)
             pbar.step(inc=c)
     finally:

@@ -11,12 +11,19 @@ With ``hoist_sampling`` (the default) and a problem that declares the CRN
 white split, the whites are drawn once per fit and every iteration runs
 ``muse_step_white``; otherwise every iteration re-samples in ``muse_step``.
 
-Left out: ``mesh`` (ROADMAP Queue 1 item 10), ``profile_dir`` (item 13),
-and ``certify`` and the odd-lane padding (TPU compiler guards).
+``mesh`` (a :class:`~muse_tpu_torch.parallel.SimsMesh`, one process per
+device) splits the lanes of every chunk over its sims axis: each rank runs
+its block, the per-lane results are gathered to every rank, every rank
+runs the float64 host update, and global rank 0's stop decision and new θ
+are broadcast, so no rank leaves the loop alone. ``profile_dir`` traces
+the iteration loop with ``torch.profiler``.
+
+Left out: ``certify`` and the odd-lane padding (TPU compiler guards).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time as _time
 import warnings
@@ -89,6 +96,67 @@ def _as_seed(seed, result) -> int:
     return int(result.key) if result.key is not None else 0
 
 
+def check_mesh(problem: MuseProblem, comp: CompiledProblem, mesh) -> None:
+    """Raise unless ``mesh`` can run ``problem``: the mesh's device is the
+    problem's (no sharded work lands on the CPU when the card was asked
+    for), and a field axis is one the problem was built with."""
+    name = problem.name or type(problem).__name__
+    field = problem.field_mesh
+    if mesh is None:
+        if field is not None:
+            raise ValueError(f"{name} was built with a field axis: pass its "
+                             "mesh= to the solver too")
+        return
+    if comp.device != mesh.device:
+        raise ValueError(f"{name} lives on {comp.device} but this rank's "
+                         f"mesh device is {mesh.device}")
+    if mesh.field_axis is not None and field is not mesh:
+        raise ValueError(
+            f"{name} cannot shard its latent over the mesh's field axis: "
+            "only grf_spectral_problem and bandpower_problem can, built "
+            "with the same mesh= (a field axis for other problems is ROADMAP "
+            "Queue 1 item 15); use a sims-only mesh")
+    if field is not None and field is not mesh:
+        raise ValueError(f"{name} was built with another mesh than the "
+                         "solver's")
+
+
+def lane_blocks(mesh, bounds) -> list:
+    """This rank's block (start, stop) of global lanes in each chunk
+    (start, stop) of ``bounds``: the whole chunk without a mesh."""
+    if mesh is None:
+        return list(bounds)
+    return [tuple(s0 + b for b in mesh.lane_block(e0 - s0))
+            for s0, e0 in bounds]
+
+
+def gather_lanes(mesh, local, lo: int, n: int) -> np.ndarray:
+    """Every lane's float64 row of an (n, …) table, from this rank's block
+    ``local`` starting at lane ``lo`` (the table itself without a mesh)."""
+    if mesh is None:
+        return np.asarray(local, np.float64)
+    return mesh.gather_sims(local, lo, n)
+
+
+def lead(mesh) -> bool:
+    """Whether this process writes checkpoints and draws progress: global
+    rank 0, or the only process."""
+    return mesh is None or mesh.rank == 0
+
+
+def _profiler(profile_dir, device, mesh):
+    """A ``torch.profiler.profile`` of the loop that writes one trace per
+    rank into ``profile_dir`` (CPU activity, and the card's on one)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    worker = None if mesh is None else f"rank{mesh.rank}"
+    return profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+        str(profile_dir), worker_name=worker))
+
+
 def muse_fit(
     result: MuseResult,
     problem: MuseProblem,
@@ -110,8 +178,10 @@ def muse_fit(
     get_covariance: bool = False,
     save_maps=False,
     max_batch: Optional[int] = None,
+    mesh=None,
     dtype=torch.float32,
     compiled: Optional[CompiledProblem] = None,
+    profile_dir: Optional[str] = None,
     hoist_sampling: bool = True,
     observed=None,
 ) -> MuseResult:
@@ -126,6 +196,19 @@ def muse_fit(
     ``muse_step_white`` at every iteration — the keyed path's math with the
     RNG out of the loop. False re-samples every iteration. ``problem`` may
     be a PPL model function with ``observed=``, as in :func:`muse`.
+
+    ``mesh``: a :class:`~muse_tpu_torch.parallel.SimsMesh`, passed alike by
+    every rank. ``max_batch`` bounds the GLOBAL lanes of one call, as in
+    JAX; each rank runs its contiguous block of every chunk (a rank may
+    hold none and still joins every collective). ``result`` ends up the
+    same on every rank: θ, the history, ``gs`` and J and H. With
+    ``save_maps`` the maps are gathered to every rank. Only global rank 0
+    writes ``checkpoint_file`` and draws the progress bar.
+
+    ``profile_dir``: trace the iteration loop with ``torch.profiler`` (CPU
+    activity, plus the card's on one) and write one trace file per rank
+    there (``tensorboard_trace_handler``); each iteration's device work
+    sits in a ``muse_step`` span.
     """
     problem = _as_problem(problem, theta0 if theta0 is not None
                           else result.theta_struct, observed, "muse_fit")
@@ -142,9 +225,11 @@ def muse_fit(
     result.theta_struct = spec.to_user(th)
 
     comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    check_mesh(problem, comp, mesh)
     dev = comp.device
     th_t = _host(comp.transform(comp.theta(th)))
     th_unreg, th_t_unreg = th.copy(), th_t.copy()
+    nth = th.shape[0]
 
     alpha_fn = alpha if callable(alpha) else (lambda i, a=alpha: a)
     save_sims_maps = save_maps is not False
@@ -164,64 +249,76 @@ def muse_fit(
     if z0 is not None:
         z0_flat = comp.zspec.flatten(tree_map(
             lambda v: torch.as_tensor(v, dtype=dtype, device=dev), z0))
+        if z0_flat.numel() == problem.field_size:
+            z0_flat = z0_flat[problem.field_slice]     # this rank's rows
     else:
         z0_flat = torch.zeros(comp.nz, dtype=dtype, device=dev)
 
-    # memory-bounded lane chunks, each carrying its global lane ids
+    # memory-bounded lane chunks of at most max_batch global lanes; under
+    # a mesh this rank runs its block of each
     step_sz = B if max_batch is None else min(max_batch, B)
     bounds = [(s0, min(s0 + step_sz, B)) for s0 in range(0, B, step_sz)]
-    Z_chunks = [z0_flat.expand(e0 - s0, comp.nz).clone()
-                for s0, e0 in bounds]
+    blocks = lane_blocks(mesh, bounds)
+    Z_chunks = [z0_flat.expand(b - a, comp.nz).clone() for a, b in blocks]
     use_white = bool(hoist_sampling) and problem.x_of_white is not None \
         and problem.sample_white is not None
-    W_chunks = ([comp.sample_whites(seeds_all[s0:e0], x_only=True)
-                 for s0, e0 in bounds] if use_white else None)
+    W_chunks = ([comp.sample_whites(seeds_all[a:b], x_only=True)
+                 for a, b in blocks] if use_white else None)
 
     pbar = ProgressReporter(maxsteps - len(history), "MUSE",
-                            enabled=progress)
+                            enabled=progress and lead(mesh))
+    prof = (_profiler(profile_dir, dev, mesh) if profile_dir
+            else contextlib.nullcontext())
     try:
+      with prof:
         for i in range(len(history) + 1, maxsteps + 1):
             t0 = _time.perf_counter()
 
-            # convergence check (src/muse.jl:163-165)
-            if i > 2 and _theta_converged(history, theta_rtol, i):
+            # convergence check (src/muse.jl:163-165), rank 0's under a mesh
+            stop = i > 2 and _theta_converged(history, theta_rtol, i)
+            if mesh is not None:
+                stop = bool(mesh.broadcast_host(stop)[0])
+            if stop:
                 _warn_midmarch_stop(history, theta_rtol, nsims)
                 break
 
             th_dev = comp.theta(th)
             th_t_dev = comp.theta(th_t)
-            g_parts, g_t_parts, conv_parts, fail_parts, it_parts = \
-                [], [], [], [], []
+            # every lane's [g, g_t, converged, failed, iterations]; this
+            # rank fills its own lanes
+            table = np.zeros((B, 2 * nth + 3))
             zhat_dat = None
             zhat_sims_parts = []
-            for ci, (s0, e0) in enumerate(bounds):
-                if use_white:
-                    out = comp.muse_step_white(th_dev, th_t_dev,
-                                               W_chunks[ci], Z_chunks[ci],
-                                               lane_ids[s0:e0], grad_z_atol)
-                else:
-                    out = comp.muse_step(th_dev, th_t_dev, seeds_all[s0:e0],
-                                         Z_chunks[ci], lane_ids[s0:e0],
-                                         grad_z_atol)
-                Z_chunks[ci] = out["Z"]
-                c = e0 - s0
-                g_parts.append(_host(out["g"]))
-                g_t_parts.append(_host(out["g_t"]))
-                conv_parts.append(out["converged"].cpu().numpy())
-                fail_parts.append(out["failed"].cpu().numpy())
-                it = out.get("iterations", 0)
-                it = it.cpu().numpy() if isinstance(it, torch.Tensor) \
-                    else np.asarray(it)
-                it_parts.append(it if it.ndim else np.full(c, int(it)))
-                if ci == 0:
-                    zhat_dat = out["Z"][0]
-                if save_sims_maps:
-                    zhat_sims_parts.append(out["Z"][1 if ci == 0 else 0:])
-            g = np.concatenate(g_parts)                 # (nsims+1, nθ)
-            g_t = np.concatenate(g_t_parts)
-            out = {"converged": np.concatenate(conv_parts),
-                   "failed": np.concatenate(fail_parts),
-                   "iterations": np.concatenate(it_parts)}
+            with torch.profiler.record_function("muse_step"):
+                for ci, ((s0, e0), (a, b)) in enumerate(zip(bounds, blocks)):
+                    if b > a:
+                        out = _chunk_step(comp, use_white, th_dev, th_t_dev,
+                                          W_chunks, seeds_all, Z_chunks, ci,
+                                          a, b, lane_ids, grad_z_atol)
+                        Z_chunks[ci] = out["Z"]
+                        it = out.get("iterations", 0)
+                        it = it.cpu().numpy() if isinstance(it, torch.Tensor) \
+                            else np.asarray(it)
+                        table[a:b] = np.column_stack([
+                            _host(out["g"]), _host(out["g_t"]),
+                            out["converged"].cpu().numpy(),
+                            out["failed"].cpu().numpy(),
+                            it if it.ndim else np.full(b - a, int(it))])
+                    if save_sims_maps:
+                        Zc = Z_chunks[ci]
+                        if mesh is not None:
+                            Zc = mesh.gather_maps(
+                                Zc, a - s0, e0 - s0, problem.field_slice,
+                                problem.field_size)
+                        if ci == 0:
+                            zhat_dat = Zc[0]
+                        zhat_sims_parts.append(Zc[1 if ci == 0 else 0:])
+            table = gather_lanes(mesh, table, 0, B)
+            g = table[:, :nth]                          # (nsims+1, nθ)
+            g_t = table[:, nth:2 * nth]
+            out = {"converged": table[:, 2 * nth] > 0,
+                   "failed": table[:, 2 * nth + 1] > 0,
+                   "iterations": table[:, 2 * nth + 2].astype(np.int32)}
             g_dat, g_sims = g[0], g[1:]
             g_dat_t, g_sims_t = g_t[0], g_t[1:]
 
@@ -290,6 +387,11 @@ def muse_fit(
             th_t = (np.asarray(regularize(th_t_unreg), np.float64)
                     if regularize is not None else th_t_unreg)
             th = _host(comp.inv_transform(comp.theta(th_t)))
+            if mesh is not None:
+                # global rank 0's θ on every rank
+                agreed = mesh.broadcast_host(np.concatenate(
+                    [th, th_t, th_unreg, th_t_unreg])).reshape(4, nth)
+                th, th_t, th_unreg, th_t_unreg = (v.copy() for v in agreed)
 
             # running updates for early stop (src/muse.jl:230-232)
             result.theta = th_unreg
@@ -302,7 +404,7 @@ def muse_fit(
             pbar.step(f"θ={_fmt(th_unreg)}  "
                       f"|g_post|={np.max(np.abs(g_post_t)):.3g}")
 
-            if checkpoint_file is not None:
+            if checkpoint_file is not None and lead(mesh):
                 result.save(checkpoint_file)
     finally:
         pbar.close()
@@ -311,11 +413,22 @@ def muse_fit(
         from .jacobians import get_H, get_J
         get_J(result, problem, seed=seed, nsims=nsims,
               grad_z_atol=grad_z_atol, dtype=dtype, compiled=comp,
-              progress=progress, warn_reuse=False, max_batch=max_batch)
+              progress=progress, warn_reuse=False, max_batch=max_batch,
+              mesh=mesh)
         get_H(result, problem, seed=seed, nsims=max(1, nsims // 10),
               grad_z_atol=grad_z_atol, dtype=dtype, compiled=comp,
-              progress=progress, max_batch=max_batch)
+              progress=progress, max_batch=max_batch, mesh=mesh)
     return result
+
+
+def _chunk_step(comp, use_white, th, th_t, W_chunks, seeds_all, Z_chunks,
+                ci, a, b, lane_ids, atol):
+    """One chunk's device work on this rank's lanes a..b."""
+    if use_white:
+        return comp.muse_step_white(th, th_t, W_chunks[ci], Z_chunks[ci],
+                                    lane_ids[a:b], atol)
+    return comp.muse_step(th, th_t, seeds_all[a:b], Z_chunks[ci],
+                          lane_ids[a:b], atol)
 
 
 def _host_flat(spec: ThetaSpec, theta) -> np.ndarray:

@@ -182,7 +182,7 @@ def test_lbfgs_solver_and_mesh():
                                            1e-3)
     assert aux["converged"].all()
     torch.testing.assert_close(Z, Zd, rtol=0, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(TypeError, match="SimsMesh"):
         tb.bandpower_problem(N, NB, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="solver"):
         tb.bandpower_problem(N, NB, solver="newton", device=CPU)

@@ -28,6 +28,7 @@ from muse_tpu_torch import check_self_consistency, convert
 from muse_tpu_torch.models import grf as tg
 from muse_tpu_torch.ops import grf_spectrum as tp
 from muse_tpu_torch.ops.cg import batched_cg
+from muse_tpu_torch.parallel import SimsMesh
 from muse_tpu_torch.solver.compiled import CompiledProblem as TCompiled
 from muse_tpu_torch.theta import ThetaSpec as TSpec
 from torch_parity import assert_fits_agree, fits_on_jax_whites
@@ -166,7 +167,11 @@ def test_theta_score_is_one_quadform_evaluation_per_batch():
 def test_what_is_left_out_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="Left out on purpose"):
         tg.grf_problem(n=8, fft_mode="matmul", device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    field = SimsMesh.__new__(SimsMesh)       # a mesh with a field axis, as
+    field.field_axis = "field"               # far as the check reads it
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tg.grf_problem(n=8, mesh=field, device=CPU)
+    with pytest.raises(TypeError, match="SimsMesh"):
         tg.grf_problem(n=8, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="fft_mode"):
         tg.grf_problem(n=8, fft_mode="dct", device=CPU)

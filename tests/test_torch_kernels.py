@@ -26,11 +26,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, n, device, seed=0):
+def _inputs(B, n, device, seed=0, rows=None):
+    """(B, rows, 2m) spectra and (rows, 2m) weights: a field axis of a mesh
+    gives each rank ``rows`` of the n rows of the packed grid (all of them
+    by default)."""
     g = torch.Generator(device=device).manual_seed(seed)
     m2 = 2 * (n // 2 + 1)
     z = torch.randn((B, n, m2), generator=g, device=device)
     w = torch.rand((n, m2), generator=g, device=device) + 0.5
+    if rows is not None:
+        z, w = z[:, n - rows:].contiguous(), w[n - rows:].contiguous()
     return z, w
 
 
@@ -61,12 +66,16 @@ def test_fused_cpu_tensors_take_the_plain_version():
         tp.spectrum_quadform_and_grad_cuda(z, w)
 
 
+# the lane counts of every path at 1024², then the row slices of a field
+# axis of 2 (the sharded north star's fit chunks of 128 and 1 lanes) and the
+# half chunk of a sims axis of 2 (64 lanes)
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(1, 1024), (17, 1024), (20, 1024),
-                                 (40, 1024), (101, 1024), (128, 1024),
-                                 (3, 100), (3, 33)])
-def test_kernel_matches_plain(cuda, B, n):
-    z, w = _inputs(B, n, cuda)
+@pytest.mark.parametrize("B,n,rows", [
+    (1, 1024, None), (17, 1024, None), (20, 1024, None), (40, 1024, None),
+    (101, 1024, None), (128, 1024, None), (3, 100, None), (3, 33, None),
+    (64, 1024, None), (128, 1024, 512), (1, 1024, 512)])
+def test_kernel_matches_plain(cuda, B, n, rows):
+    z, w = _inputs(B, n, cuda, rows=rows)
     got = tp.spectrum_quadform_cuda(z, w)
     want = tp.spectrum_quadform_plain(z.double(), w.double())
     rel = ((got.double() - want).abs() / want.abs()).max().item()
@@ -135,18 +144,27 @@ def _band_weight(n, nbands, device, sigma_noise=0.01):
 
 # the lane counts of every path that launches the fused kernel at 1024²
 # (fit chunks of 128, 101 and 1 lanes; get_H's MAP solves of 51, 10, 20, 40
-# and 5 lanes), with a flat weight and with the bandpower operator
+# and 5 lanes), with a flat weight and with the bandpower operator; then
+# under a mesh: a sims axis of 2 halves the north star's chunks (64, 26,
+# 25 lanes), a field axis of 2 halves the rows (the north star's 128, 1
+# and 51 lanes, the bandpower fit's 101 and its H's 5)
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,bands", [
-    (1, 1024, 0), (5, 1024, 0), (10, 1024, 0), (17, 1024, 0), (20, 1024, 0),
-    (40, 1024, 0), (51, 1024, 0), (101, 1024, 0), (128, 1024, 0),
-    (101, 1024, 12), (5, 1024, 12), (3, 100, 0), (5, 33, 0)])
-def test_fused_kernel_matches_plain(cuda, B, n, bands):
+@pytest.mark.parametrize("B,n,bands,rows", [
+    (1, 1024, 0, None), (5, 1024, 0, None), (10, 1024, 0, None),
+    (17, 1024, 0, None), (20, 1024, 0, None), (40, 1024, 0, None),
+    (51, 1024, 0, None), (101, 1024, 0, None), (128, 1024, 0, None),
+    (101, 1024, 12, None), (5, 1024, 12, None), (3, 100, 0, None),
+    (5, 33, 0, None), (64, 1024, 0, None), (26, 1024, 0, None),
+    (25, 1024, 0, None), (128, 1024, 0, 512), (1, 1024, 0, 512),
+    (51, 1024, 0, 512), (101, 1024, 12, 512), (5, 1024, 12, 512)])
+def test_fused_kernel_matches_plain(cuda, B, n, bands, rows):
     """quad within 1e-5 relative of a float64 sum, half_grad bitwise
     ``z * w``, and a bitwise-equal rerun (no atomics)."""
-    z, w = _inputs(B, n, cuda, seed=B + n)
+    z, w = _inputs(B, n, cuda, seed=B + n, rows=rows)
     if bands:
         w = _band_weight(n, bands, cuda)
+        if rows is not None:
+            w = w[n - rows:].contiguous()
     q, g = tp.spectrum_quadform_and_grad_cuda(z, w)
     want = tp.spectrum_quadform_plain(z.double(), w.double())
     rel = ((q.double() - want).abs() / want.abs()).max().item()

@@ -222,13 +222,13 @@ def test_x_only_skips_the_conditional_draw():
 
 
 def test_not_ported_options_raise():
-    """solver="lbfgs" builds (no custom_zhat: the generic L-BFGS MAPs);
-    mesh= is still queued and raises; a bad noise or solver is an error."""
+    """solver="lbfgs" builds (no custom_zhat: the generic L-BFGS MAPs); a
+    mesh= that is not a SimsMesh, a bad noise or solver is an error."""
     assert tgrf.grf_spectral_problem(n=8, solver="lbfgs",
                                      device=CPU).custom_zhat is None
     with pytest.raises(ValueError, match="solver"):
         tgrf.grf_spectral_problem(n=8, solver="newton", device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(TypeError, match="SimsMesh"):
         tgrf.grf_spectral_problem(n=8, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="noise"):
         tgrf.grf_spectral_problem(n=8, noise="pink", device=CPU)

@@ -14,7 +14,9 @@ from muse_tpu.theta import ThetaSpec as JSpec
 import muse_tpu_torch
 from muse_tpu_torch import MuseResult, SimpleMuseProblem, ThetaSpec
 from muse_tpu_torch.distributions import MvNormal, Normal
-from muse_tpu_torch.models import grf_field_problem, grf_spectral_problem
+from muse_tpu_torch.models import (grf_field_problem, grf_problem,
+                                   grf_spectral_problem)
+from muse_tpu_torch.parallel import SimsMesh
 from muse_tpu_torch.solver import CompiledProblem
 from muse_tpu_torch.utils import (dummy_seed, lane_generator, resolve_device,
                                   sim_seeds)
@@ -142,8 +144,9 @@ def test_problem_device_defaults_to_the_card():
 
 def test_paths_not_ported_yet_raise():
     """Adaptive FD get_H and a problem without custom_zhat (the generic
-    L-BFGS MAPs) run now; the paths still queued raise and say where they
-    stand in the ROADMAP."""
+    L-BFGS MAPs) run now; the paths still queued (the field axis of the
+    pixel grf_problem) or left out raise and say where they stand in the
+    ROADMAP."""
     p = grf_field_problem(n=8, device="cpu")
     res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2)
     muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
@@ -151,7 +154,11 @@ def test_paths_not_ported_yet_raise():
     q = SimpleMuseProblem(p.x, p.sample_x_z, p.log_like)    # no custom_zhat
     r = muse_tpu_torch.muse(q, 0.5, nsims=4, maxsteps=2)
     assert r.history[0]["map_iterations"].max() > 0
+    field = SimsMesh.__new__(SimsMesh)       # a mesh with a field axis, as
+    field.field_axis = "field"               # far as the check reads it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        grf_problem(n=8, mesh=field, device="cpu")
+    with pytest.raises(TypeError, match="SimsMesh"):
         grf_spectral_problem(n=8, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CompiledProblem(p, ThetaSpec.from_example(0.5),
