@@ -32,7 +32,13 @@ full width, each checked against an exact oracle. The paths:
     entry point): slice 2's pipeline and slice 4's bandpower model with
     ``mesh=``, on the one card — at world size 1 over NCCL, and as two
     ranks sharing the card over gloo (a sims axis of 2, then a field axis
-    of 2) — and ``muse_fit(profile_dir=...)``.
+    of 2) — and ``muse_fit(profile_dir=...)``;
+  * slice 6, the field axis for every problem: slice 4's pixel
+    ``grf_problem(n=1024, sigma_noise=0.01, mesh=)`` (its latent on 512 of
+    the 1024 pixel rows a rank, gathered FFTs at each solve's entry and
+    exit), slice 3's user models and slice 4's 256² lensing case on the
+    gathered route, each on ``sims=1 × field=2`` (two ranks sharing the
+    card over gloo), and ``grf_field_problem(use_pallas=False)``.
 
 The noise level and θ_rtol are the repo's 1024² north-star settings. At
 the default σ = 1 the field is so faint that the marginal MLE of a draw
@@ -53,9 +59,10 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      remainder of 513, their halves under a sims axis of 2 (64), and a
      field axis of 2's row slices of 512 × 1026 at 128 and 1 lanes, both
      halves of the grid; slice 3: 101 and 40 lanes; slice 4's pixel GRF:
-     packed maps and the weight w·C/((C+σ²)²n²), 101 and 20 lanes), held
-     against the plain version in float64 (max relative error ≤ 1e-5) with
-     a bitwise rerun;
+     packed maps and the weight w·C/((C+σ²)²n²), 101 and 20 lanes, and
+     under a field axis of 2 both halves of its rows at 101 and 20
+     lanes), held against the plain version in float64 (max relative
+     error ≤ 1e-5) with a bitwise rerun;
   4. the slice 1 fit: |θ̂ − MLE| < 3σ_F/√100 + 0.02, 0.5 < σ/σ_F < 2, and
      every batched log-likelihood evaluation of the fit went through the
      kernel (launch count = evaluation count > 0);
@@ -69,7 +76,8 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      A = 1 + C/σ², at 101 and 5 lanes also on the bandpower model's 12-band
      operator, on a field axis of 2's row slices of 512 × 1026 (both
      halves: 128, 51 and 1 lanes on the GRF operator, 101 and 5 on the
-     12-band one), and at (3, 100) and (5, 33): quad
+     12-band one, and for the field-axis pixel GRF 101, 10 and 20), and at
+     (3, 100) and (5, 33): quad
      max relative error ≤ 1e-5 against the plain version in float64 (the
      float32 plain's own rounding reaches 1.5e-5 at B=128), half_grad
      equal to the plain ``z*w`` (``torch.equal``), a bitwise-equal rerun;
@@ -181,12 +189,43 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      trace file holding the step's kernels. Last, two ranks over NCCL on
      the one card, and what NCCL answers (printed).
 
+ 15. the field axis for every problem on the one card. 15a (ROADMAP Queue
+     3 item 1): phase 7's implicit H of 51 sims with its CG's per-lane
+     sums (rz, pᵀAp, ‖r‖², through the ``reduce`` hook) recorded at 51
+     lanes and at 26 (the first chunk of ``max_batch=26``): the first
+     step at which they differ bit for bit, the largest difference
+     relative to the lane's first value of each sum (<= 1e-6, the stated
+     tolerance), and which of the CG's inputs — the right-hand sides, one
+     operator and one preconditioner application, ``torch.sum`` and
+     ``vector_norm`` of the same rows — differ between the two widths
+     (the named cause). 15b: ``grf_field_problem(use_pallas=True|False)``
+     on phase 4's field, 101 lanes drawn at θ = 0.5: the batched
+     log-likelihood and θ-score within 1e-5 of float64 (relative to their
+     terms), one kernel launch per batched evaluation with True and none
+     with False. Then the kernels at (101, 512, 1026) (CUDA events, plain
+     versions, the library einsum, the bounds), and two ranks spawned as
+     in phase 14 (a hard limit of ``FIELD15_SPAWN_TIMEOUT_S``) on ``sims=1
+     × field=2``: the median ms of one gather of 15c's fit chunk (101
+     lanes, 512 of 1024 rows), then 15c: phase 13's pixel GRF pipeline
+     (fit, reused J, FD H) with ``grf_problem(mesh=)``, θ̂ within 1e-4 +
+     1e-4·|θ̂| of phase 13's, J and H within rtol 1e-3, grf_problem's
+     accuracy gates, quadform launches = θ-score evaluations, fused
+     launches = CG steps, gathers and no field maxima (the sharded-sum
+     route); 15d: phase 10's four user models with ``mesh=`` (the gathered
+     route: gathers and field maxima), θ̂ within 1e-4 + 1e-4·|θ̂| and σ
+     within rtol 1e-3 of phase 10's, no failed MAP; 15e: phase 12's 256²
+     VarPro fit with ``mesh=``, every MAP of its last step converged, none
+     failed, |θ̂ − θ̂ phase 12| < 0.1 (JAX's gate for a sharded lensing
+     run). Printed per rank: walls, peak memory, collectives and bytes with
+     the gathers and field maxima apart, the kernels' launches and shapes
+     (each held in phases 3 and 6).
+
 The wrappers record every input shape they launch at; after phase 14 the
 run fails if a kernel ran at a shape that phases 3 and 6 did not hold
-against the plain version. No phase's failure is caught: any failure exits
-non-zero. The line before
+against the plain version, and phase 15 checks its ranks' shapes alike.
+No phase's failure is caught: any failure exits non-zero. The line before
 last is ``{"kernels": [...]}``: each kernel's ``launches`` is its count on
-slice 5's path, phase 14c's rank 0 (the counters set to 0 just before each
+slice 6's path, phase 15c's rank 0 (the counters set to 0 just before each
 path and read just after), and ``launches_by_path`` holds the count of
 every slice's path. The last line is ``{"ok": true, "device": …}``.
 Without a card, or without the package beside it, it exits non-zero and
@@ -583,6 +622,10 @@ def phase10(card, dev):
            f"{abs(float(rs.theta[0]) - s_mle):.5f} (< {bound:.5f})")
     if not abs(float(rs.theta[0]) - s_mle) < bound:
         raise AssertionError(f"ŝ {rs.theta[0]} vs exact MLE {s_mle}")
+    return {name: {"theta": np.asarray(r.theta).tolist(),
+                   "sigma": np.asarray(r.sigma).tolist()}
+            for name, r in (("funnel", rf), ("vector_funnel", rv),
+                            ("ppl_funnel", rp), ("ppl_scale", rs))}
 
 
 # slice 4, the lensing pipeline (examples/lensing_demo.py:87-124, the
@@ -1050,6 +1093,7 @@ def phase12(card, dev):
           f"VarPro run's J and implicit H)")
     if not spread < 0.5 * found["sigma"]:
         raise AssertionError(f"the solvers disagree: {found}")
+    return found
 
 
 def phase13(card, dev, field):
@@ -1185,7 +1229,11 @@ def phase13(card, dev, field):
         raise AssertionError("fused launches do not match the CG steps")
     return {"fused_bandpower": fused_band, "fused_grf_pixel": fused_grf,
             "quad_grf_pixel": quad, "band_theta": band_theta,
-            "band_fit_s": t_fit, "band_J_s": t_j, "band_H_s": t_h}
+            "band_fit_s": t_fit, "band_J_s": t_j, "band_H_s": t_h,
+            "pixel": {"theta": th, "sigma": sig, "J": float(res_g.J[0, 0]),
+                      "H": float(res_g.H[0, 0]), "mle": mle_g,
+                      "sigma_F": sig_g, "steps": steps, "fit_J_H_s": t_g,
+                      "quad_launches": quad, "fused_launches": fused_grf}}
 
 
 # phase 14: the hard wall-time limit of the spawned ranks (killed when it
@@ -1631,6 +1679,501 @@ def phase14(card, dev, ref7, walls7, mle2, sig_F2, band13, held, comp2,
             "d": ranks[0]["14d"]}
 
 
+# ------------------------------------------------------------------ #
+# phase 15: the field axis for every problem (slice 6)
+# ------------------------------------------------------------------ #
+
+# two ranks share the card over gloo on sims=1 × field=2: the pixel GRF of
+# phase 13 (the sharded-sum route, 100 sims: 512 of the 1024 pixel rows a
+# rank, its PCG on the same rows of the packed grid), phase 10's user
+# models and phase 12's 256² lensing case (the gathered route). The hard
+# limit on the spawned ranks' wall time
+FIELD15_SPAWN_TIMEOUT_S = 600
+PIXEL_ROWS15 = 1024 // MESH_RANKS
+# the lane counts at which the field-axis pixel GRF launches on
+# PIXEL_ROWS15 rows: its θ-scores on the fit's chunk and on the ±ε stencil
+# batch; its PCG on the fit's chunk, the fiducial MAPs and the stencil batch
+QUAD_SLICED_PIXEL = (NSIMS4_GRF + 1, H_LANES4_PIXEL[1])
+FUSED_SLICED_PIXEL = (NSIMS4_GRF + 1, *H_LANES4_PIXEL)
+
+
+def _rank_counts(mesh):
+    """The kernels' and the mesh's counters, as a dict."""
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+    return {"quad_launches": gs.spectrum_quadform_cuda.launches,
+            "quad_evaluations": gs.SpectrumQuadform.evaluations,
+            "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
+            "cg_steps": batched_cg.curvature_steps,
+            "collectives": mesh.collectives,
+            "collective_bytes": mesh.collective_bytes,
+            "gathers": mesh.gathers, "gather_bytes": mesh.gather_bytes,
+            "max_reduces": mesh.max_reduces}
+
+
+def _reset_counts(mesh):
+    """Zero the counters of :func:`_rank_counts` and the peak memory."""
+    import torch
+
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+    gs.reset_counts()
+    batched_cg.curvature_steps = 0
+    mesh.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def pixel15_on(mesh, dev, x_obs):
+    """Phase 13's pixel GRF pipeline, ``muse(grf_problem(n=1024,
+    sigma_noise=0.01, solver="cg"), 0.5, nsims=100, theta_rtol=1e-5,
+    maxsteps=20, get_covariance=True)`` on phase 4's field, as its three
+    calls (the fit, get_J reusing the fit's scores, the FD get_H of 10
+    sims), with the problem built with ``mesh=``."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch
+    from muse_tpu_torch.models import grf_problem
+
+    pg = grf_problem(n=N4, sigma_noise=0.01, solver="cg", x_obs=x_obs,
+                     device=dev, mesh=mesh)
+    kw = dict(nsims=NSIMS4_GRF, mesh=mesh)
+    _reset_counts(mesh)
+    res = muse_tpu_torch.MuseResult()
+    _, t_fit = timed(lambda: muse_tpu_torch.muse_fit(
+        res, pg, 0.5, theta_rtol=1e-5, maxsteps=20, **kw))
+    fit_counts = _rank_counts(mesh)
+    _, t_j = timed(lambda: muse_tpu_torch.get_J(res, pg, warn_reuse=False,
+                                                **kw))
+    _, t_h = timed(lambda: muse_tpu_torch.get_H(
+        res, pg, nsims=max(1, NSIMS4_GRF // 10), mesh=mesh))
+    return {"theta": float(res.theta[0]), "sigma": float(res.sigma[0]),
+            "J": float(res.J[0, 0]), "H": float(res.H[0, 0]),
+            "steps": len(res.history), "fit_s": t_fit, "J_s": t_j,
+            "H_s": t_h,
+            "failed": bool(any(h["map_failed"].any() for h in res.history)),
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "fit_counts": fit_counts, **_rank_counts(mesh),
+            "step_s": [h["t"] for h in res.history],
+            "finite": bool(np.isfinite(res.theta).all()
+                           and np.isfinite(res.sigma).all())}
+
+
+def users15_on(mesh, dev):
+    """Phase 10's user models with ``mesh=``: each ``muse(..., nsims=200,
+    theta_rtol=1e-3, grad_z_atol=1e-3, get_covariance=True, seed=1)``."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch
+    from muse_tpu_torch import distributions as dist
+    from muse_tpu_torch import ppl
+    from muse_tpu_torch.models import funnel_problem, vector_funnel_problem
+
+    D = 512
+    kw = dict(nsims=200, theta_rtol=1e-3, grad_z_atol=1e-3,
+              get_covariance=True, seed=1, mesh=mesh)
+    pf = funnel_problem(D, device=dev)
+    x = pf.x
+
+    def funnel():
+        theta = ppl.sample("theta", dist.Normal(0.0, 3.0))
+        z = ppl.sample("z", dist.Normal(0.0, torch.exp(theta / 2))
+                       .expand((D,)))
+        ppl.sample("x", dist.Normal(z, 1.0))
+
+    def scale_model():
+        s = ppl.sample("s", dist.LogNormal(0.0, 1.0))
+        z = ppl.sample("z", dist.Normal(0.0, s).expand((D,)))
+        ppl.sample("x", dist.Normal(z, 1.0))
+
+    pv = vector_funnel_problem(256, 4, device=dev)
+    runs = (("funnel", lambda: muse_tpu_torch.muse(pf, 1.0, **kw)),
+            ("vector_funnel", lambda: muse_tpu_torch.muse(
+                pv, np.zeros(4), **kw)),
+            ("ppl_funnel", lambda: muse_tpu_torch.muse(
+                funnel, {"theta": 1.0}, observed={"x": x}, **kw)),
+            ("ppl_scale", lambda: muse_tpu_torch.muse(
+                scale_model, {"s": 1.0}, observed={"x": x}, **kw)))
+    out = {}
+    for name, run in runs:
+        _reset_counts(mesh)
+        r, t = timed(run)
+        out[name] = {
+            "theta": np.asarray(r.theta).tolist(),
+            "sigma": np.asarray(r.sigma).tolist(), "s": t,
+            "steps": len(r.history),
+            "failed": bool(any(h["map_failed"].any() for h in r.history)),
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **_rank_counts(mesh)}
+    return out
+
+
+def lensing15_on(mesh, dev):
+    """Phase 12's 256² case with ``mesh=``: VarPro MAPs to 1e-3, 16 sims,
+    the demo's Broyden fit with the ±0.3 clamp, from ``suggested_z0``."""
+    import torch
+
+    import muse_tpu_torch
+    from muse_tpu_torch.models import lensing_problem
+
+    x_small = lensing_problem(n=N4_SMALL, theta_true=THETA_TRUE4,
+                              data_seed=DATA_SEED4, device=dev).x
+    p = lensing_problem(n=N4_SMALL, solver="varpro", x_obs=x_small,
+                        device=dev)
+    _reset_counts(mesh)
+    c0 = lensing_counts()
+    r = muse_tpu_torch.MuseResult()
+    _, t = timed(lambda: muse_tpu_torch.muse_fit(
+        r, p, 0.0, nsims=NSIMS4_SMALL, z0=p.suggested_z0,
+        regularize=clamp_steps([0.0]), seed=1, mesh=mesh,
+        **dict(LENS_FIT4, grad_z_atol=ATOL4_SMALL)))
+    c1 = lensing_counts()
+    return {"theta": float(r.theta[0]), "s": t, "steps": len(r.history),
+            "unconverged_by_step": [int((~h["map_converged"]).sum())
+                                    for h in r.history],
+            "failed_by_step": [int(h["map_failed"].sum())
+                               for h in r.history],
+            "polish_entries": p.zhat_varpro.polish_entries,
+            "solver_counts": {k: c1[k] - c0[k] for k in c1},
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **_rank_counts(mesh)}
+
+
+def _field_rank(rank, port, out_dir):
+    """One of the two spawned ranks of phase 15 (sims=1 × field=2 over gloo
+    on the one card): times one gather at 15c's shape, runs 15c, 15d and
+    15e and writes what it measured to ``field<r>.json``."""
+    os.environ["LOCAL_RANK"] = "0"
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.parallel import make_sims_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = make_sims_mesh(sims=1, field=MESH_RANKS)
+        dev = mesh.device
+        # one gather of 15c's fit chunk: every lane's 1024² latent from
+        # this rank's 512 rows (the solve's entry; its exit is as large)
+        B, size = NSIMS4_GRF + 1, N4 * N4
+        cols = slice(mesh.field_rows(N4).start * N4,
+                     mesh.field_rows(N4).stop * N4)
+        local = torch.ones((B, cols.stop - cols.start), device=dev)
+        gather_ms = [collective_ms(lambda: mesh.gather_field(local, cols,
+                                                             size), reps=5)]
+        del local
+        x_obs = np.load(os.path.join(out_dir, "field4.npy"))
+        out = {"gather_ms": gather_ms,
+               "gather_shape": [B, cols.stop - cols.start, size],
+               "15c": pixel15_on(mesh, dev, x_obs)}
+        out["15d"] = users15_on(mesh, dev)
+        out["15e"] = lensing15_on(mesh, dev)
+        out["shapes"] = {
+            "spectrum_quadform": sorted(gs.spectrum_quadform_cuda.shapes),
+            "spectrum_quadform_and_grad": sorted(
+                gs.spectrum_quadform_and_grad_cuda.shapes)}
+        with open(os.path.join(out_dir, f"field{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase15a(card, prob2, comp2, theta2):
+    """Queue 3 item 1: the same 51 sims of phase 7's implicit H through
+    ``batched_cg`` at 51 lanes and at 26 (the first chunk of
+    ``max_batch=26``): each step's per-lane rz, pᵀAp and ‖r‖² (as the
+    ``reduce`` hook sees them) compared bit by bit, and the CG's inputs —
+    the right-hand sides, one operator application, one preconditioner
+    application and ``torch.sum`` of the same rows — at both widths."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch
+    import muse_tpu_torch.solver.compiled as compiled_mod
+
+    plain_cg = compiled_mod.batched_cg
+    captured = []
+
+    def capture(matvec, b, **kw):
+        captured.append((matvec, b, kw))
+        return plain_cg(matvec, b, **kw)
+
+    compiled_mod.batched_cg = capture
+    try:
+        for mb in (None, MESH_H_LANES2[-1]):
+            muse_tpu_torch.get_H(
+                muse_tpu_torch.MuseResult(), prob2, theta2, seed=1,
+                nsims=H_NSIMS2, implicit_diff=True, max_batch=mb,
+                implicit_diff_precond=prob2.suggested_h_precond,
+                compiled=comp2)
+    finally:
+        compiled_mod.batched_cg = plain_cg
+    (mv_w, b_w, kw_w), (mv_n, b_n, kw_n) = captured[0], captured[1]
+    k = b_n.shape[0]
+
+    def sums(mv, b, kw):
+        seen = []
+
+        def record(t):
+            seen.append(t.clone())
+            return t
+        plain_cg(mv, b, **dict(kw, reduce=record))
+        return seen
+
+    wide, narrow = sums(mv_w, b_w, kw_w), sums(mv_n, b_n, kw_n)
+    # the records: ‖b‖², (rz, ‖r‖²) at the start, then per step pᵀAp and
+    # (rz, ‖r‖²). Each difference is taken relative to the lane's first
+    # value of the same sum (a converged residual's sums are rounding
+    # noise, so relative to themselves they say nothing)
+    names = ["‖b‖²", "(rz, ‖r‖²) start"] + [
+        f"{'pᵀAp' if i % 2 == 0 else '(rz, ‖r‖²)'} step {i // 2 + 1}"
+        for i in range(max(len(wide), len(narrow)) - 2)]
+    first, worst = None, 0.0
+    for i, (w, n) in enumerate(zip(wide, narrow)):
+        w = w[..., :k]
+        scale = narrow[i if i < 3 else 1 if i % 2 else 2].double().abs()
+        if first is None and not torch.equal(w, n):
+            first = names[i]
+        worst = max(worst, ((w.double() - n.double()).abs()
+                            / scale.clamp(min=1e-30)).max().item())
+    P = b_w[:k]
+    probes = {
+        "right-hand sides": (b_w[:k], b_n),
+        "operator (HVP) on the same vectors": (mv_w(b_w)[:k], mv_n(b_n)),
+        "preconditioner": (kw_w["precond"](b_w)[:k], kw_n["precond"](b_n)),
+        "torch.sum of the same rows": (torch.sum(b_w * b_w, -1)[:k],
+                                       torch.sum(P * P, -1)),
+        "vector_norm of the same rows": (
+            torch.linalg.vector_norm(b_w, dim=-1)[:k],
+            torch.linalg.vector_norm(P, dim=-1))}
+    equal = {name: bool(torch.equal(a, b)) for name, (a, b) in probes.items()}
+    cause = next((name for name, same in equal.items() if not same), None)
+    phase(f"phase 15a [{card}] implicit H's CG (Queue 3 item 1): 51 sims "
+          f"at {b_w.shape[0]} lanes vs {k}: {len(wide)} and {len(narrow)} "
+          f"reductions; first step whose per-lane sums differ: "
+          f"{first or 'none (bitwise equal)'}; max difference relative to "
+          f"the lane's first value of each sum {worst:.3e} (<= 1e-6, the "
+          f"tolerance stated); bitwise equal at both widths: "
+          f"{equal}; named cause: {cause or 'not reproduced at these inputs'}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"the CG's per-lane sums move by {worst} "
+                             "between batch widths")
+    del captured, mv_w, mv_n, b_w, b_n, P, probes
+    return {"first_difference": first, "max_rel": worst, "equal": equal,
+            "cause": cause}
+
+
+def phase15b(card, dev, prob4):
+    """``grf_field_problem(use_pallas=)`` both ways on phase 4's field: the
+    batched log-likelihood and θ-score of 101 lanes drawn by the problem's
+    sampler at θ = 0.5, against float64, and the kernel's launches."""
+    import torch
+    from torch.func import grad, vmap
+
+    from muse_tpu_torch.models import grf_field_problem
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.utils.keys import lane_generator
+
+    B, th = NSIMS4_GRF + 1, 0.5
+    cfg = prob4.grf_config
+    n, s2 = cfg.n, cfg.sigma_noise ** 2
+    xs, zs = map(torch.stack, zip(*(prob4.sample_x_z(
+        lane_generator(s, dev), th) for s in range(B))))
+    tht = torch.tensor(th, device=dev)
+    out = {}
+    for flag in (True, False):
+        p = grf_field_problem(n=n, sigma_noise=cfg.sigma_noise,
+                              x_obs=prob4.x, device=dev, use_pallas=flag)
+        gs.reset_counts()
+        ll = vmap(lambda a, b: p.log_like(a, b, tht))(xs, zs)
+        ll_launches = gs.spectrum_quadform_cuda.launches
+        g = vmap(lambda a, b: grad(lambda t: p.log_like(a, b, t))(tht))(
+            xs, zs)
+        out[flag] = (ll, g, ll_launches,
+                     gs.spectrum_quadform_cuda.launches - ll_launches)
+    # float64: quad = Σ w|ẑ|²/C; log p = −½(Σ(x−z)²/σ² + quad/n² + Σ w log C);
+    # ∂θ log p = ½(quad/n² − Σ w), since ∂C/∂θ = C
+    C = cfg.spectrum(th).double()
+    w = cfg.herm_weight.double()
+    quad = gs.spectrum_quadform_plain(gs.pack_rfft2(zs.double()),
+                                      gs.pack_weights(w / C)) / n ** 2
+    resid = ((xs.double() - zs.double()) ** 2).sum((-2, -1)) / s2
+    ll64 = -0.5 * (resid + quad + (w * torch.log(C)).sum())
+    g64 = 0.5 * (quad - w.sum())
+    # the error scale: each term of the sums (the score is a difference of
+    # two ~n² terms that cancel to ~n)
+    ll_scale, g_scale = (resid + quad).abs(), quad.abs() + w.sum()
+    errs = {flag: (((ll.double() - ll64).abs() / ll_scale).max().item(),
+                   ((g.double() - g64).abs() / g_scale).max().item())
+            for flag, (ll, g, _, _) in out.items()}
+    agree = ((out[True][1].double() - out[False][1].double()).abs()
+             / g_scale).max().item()
+    phase(f"phase 15b [{card}] grf_field_problem(n=1024, sigma_noise=0.01, "
+          f"use_pallas=True|False), {B} lanes at θ = {th}: log-likelihood "
+          f"and θ-score error vs float64, relative to their terms' "
+          f"magnitude: True {errs[True][0]:.3e}, {errs[True][1]:.3e}; "
+          f"False {errs[False][0]:.3e}, {errs[False][1]:.3e} (each <= "
+          f"1e-5); the two scores apart by {agree:.3e}; kernel launches "
+          f"for the batched log-likelihood and the batched score: True "
+          f"{out[True][2]} and {out[True][3]}, False {out[False][2]} and "
+          f"{out[False][3]}")
+    if not all(e <= 1e-5 for pair in errs.values() for e in pair):
+        raise AssertionError(f"use_pallas: off float64: {errs}")
+    if not (out[True][2] == out[True][3] == 1
+            and out[False][2] == out[False][3] == 0):
+        raise AssertionError("use_pallas: the kernel's launches are not 1 "
+                             "per batched evaluation (True) and 0 (False)")
+    del xs, zs, out, quad, resid, ll64, g64
+
+
+def phase15(card, dev, prob4, pixel13, users10, lensing12, held):
+    """The field axis for every problem on the one card: two ranks over
+    gloo, sims=1 × field=2 (15c pixel GRF, 15d user models, 15e lensing),
+    and the kernels at the field-axis pixel GRF's shapes. Returns rank 0's
+    15c results (its kernels' launches: slice 6's path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from muse_tpu_torch.ops import grf_spectrum as gs
+
+    # the kernels at the field-axis pixel GRF's fit chunk (CUDA events;
+    # the plain versions, the one-call library route and the bounds)
+    g = torch.Generator(device=dev).manual_seed(15)
+    B, rows = NSIMS4_GRF + 1, PIXEL_ROWS15
+    z = torch.randn((B, rows, 1026), generator=g, device=dev)
+    w = torch.rand((rows, 1026), generator=g, device=dev) + 0.5
+    L = rows * 1026
+    q = [cuda_ms(lambda: gs.spectrum_quadform_cuda(z, w)),
+         cuda_ms(lambda: gs.spectrum_quadform_plain(z, w)),
+         cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w)),
+         *least_ms((B * L + L + B) * 4, 3 * B * L)]
+    f = [cuda_ms(lambda: gs.spectrum_quadform_and_grad_cuda(z, w)),
+         cuda_ms(lambda: gs.spectrum_quadform_and_grad_plain(z, w)),
+         *least_ms((2 * B * L + L + B) * 4, 3 * B * L)]
+    phase(f"phase 15 [{card}] kernels at ({B}, {rows}, 1026): "
+          f"spectrum_quadform {q[0]:.4f} ms (plain {q[1]:.4f}, library "
+          f"einsum {q[2]:.4f}, bound {q[3]:.4f} by {q[4]}); "
+          f"spectrum_quadform_and_grad {f[0]:.4f} ms (plain {f[1]:.4f}, "
+          f"bound {f[2]:.4f} by {f[3]})")
+    del z, w
+
+    torch.cuda.empty_cache()       # leave the card to the ranks
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_field_")
+    np.save(os.path.join(out_dir, "field4.npy"),
+            prob4.x.detach().cpu().numpy())
+    _, t_spawn = timed(lambda: spawn_ranks(_field_rank, out_dir,
+                                           FIELD15_SPAWN_TIMEOUT_S))
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"field{r}.json")) as f:
+            ranks.append(json.load(f))
+    phase(f"phase 15 [{card}] {MESH_RANKS} ranks, sims=1 × field=2 over "
+          f"gloo on the one card: {t_spawn:.1f} s from spawn to exit")
+
+    def gate(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    ref = pixel13
+    bound = 3 * ref["sigma_F"] / np.sqrt(NSIMS4_GRF) + 0.02
+    for r, out in enumerate(ranks):
+        c = out["15c"]
+        fc = c["fit_counts"]
+        phase(f"phase 15c rank {r} [{card}] grf_problem(n=1024, "
+              f"sigma_noise=0.01, mesh=field 2): θ̂ {c['theta']:.9f} σ "
+              f"{c['sigma']:.9f} J {c['J']:.6f} H {c['H']:.6f}, steps "
+              f"{c['steps']}; walls fit {c['fit_s']:.3f} s (steps "
+              f"{[round(t, 3) for t in c['step_s']]}), J {c['J_s']:.4f} s, "
+              f"H {c['H_s']:.3f} s (one process, phase 13: fit + J + H "
+              f"{ref['fit_J_H_s']:.3f} s); peak {c['peak_GiB']:.2f} GiB; "
+              f"collectives {c['collectives']} ({fc['collectives']} in the "
+              f"fit), {c['collective_bytes']} bytes, of which gathers "
+              f"{c['gathers']} ({fc['gathers']} in the fit), "
+              f"{c['gather_bytes']} bytes; one gather of "
+              f"{out['gather_shape']} (lanes, rank's columns, whole): "
+              f"{out['gather_ms'][0]:.1f} ms; quadform launches "
+              f"{c['quad_launches']} = evaluations {c['quad_evaluations']}; "
+              f"fused launches {c['fused_launches']} = CG steps "
+              f"{c['cg_steps']}")
+        d_th = abs(c["theta"] - ref["theta"])
+        rel_j = abs(c["J"] - ref["J"]) / abs(ref["J"])
+        rel_h = abs(c["H"] - ref["H"]) / abs(ref["H"])
+        phase(f"phase 15c rank {r}: |θ̂ − θ̂ phase 13| {d_th:.3e} (<= 1e-4 "
+              f"+ 1e-4·|θ̂|), J and H relative {rel_j:.3e} and {rel_h:.3e} "
+              f"(<= 1e-3); |θ̂−MLE| {abs(c['theta'] - ref['mle']):.6f} "
+              f"(< {bound:.6f}); σ/σ_F {c['sigma'] / ref['sigma_F']:.4f}")
+        gate(c["finite"] and not c["failed"], f"15c rank {r}: {c}")
+        gate(d_th <= 1e-4 + 1e-4 * abs(ref["theta"]),
+             f"15c rank {r} θ̂ off phase 13")
+        gate(rel_j <= 1e-3 and rel_h <= 1e-3, f"15c rank {r} J or H off")
+        gate(abs(c["theta"] - ref["mle"]) < bound
+             and 0.5 < c["sigma"] / ref["sigma_F"] < 2,
+             f"15c rank {r} misses grf_problem's accuracy gates")
+        gate(c["quad_launches"] == c["quad_evaluations"] > 0,
+             f"15c rank {r}: quadform launches")
+        gate(c["fused_launches"] == c["cg_steps"] > 0,
+             f"15c rank {r}: fused launches")
+        gate(c["gathers"] > 0 and c["max_reduces"] == 0,
+             f"15c rank {r}: not the sharded-sum route")
+
+        for name, u in out["15d"].items():
+            want = users10[name]
+            d = np.abs(np.asarray(u["theta"]) - want["theta"])
+            rel_s = np.abs(np.asarray(u["sigma"]) - want["sigma"]) / \
+                np.asarray(want["sigma"])
+            phase(f"phase 15d rank {r} [{card}] {name}: θ̂ "
+                  f"{np.round(u['theta'], 6).tolist()} σ "
+                  f"{np.round(u['sigma'], 6).tolist()}, {u['steps']} steps, "
+                  f"{u['s']:.2f} s; max |θ̂ − θ̂ phase 10| {d.max():.3e} "
+                  f"(<= 1e-4 + 1e-4·|θ̂|), σ relative {rel_s.max():.3e} "
+                  f"(<= 1e-3); collectives {u['collectives']}, gathers "
+                  f"{u['gathers']} ({u['gather_bytes']} bytes), field maxima "
+                  f"{u['max_reduces']}; peak {u['peak_GiB']:.2f} GiB")
+            gate(not u["failed"], f"15d rank {r} {name}: a MAP failed")
+            gate((d <= 1e-4 + 1e-4 * np.abs(want["theta"])).all(),
+                 f"15d rank {r} {name}: θ̂ off phase 10")
+            gate((rel_s <= 1e-3).all(), f"15d rank {r} {name}: σ off")
+            gate(u["gathers"] > 0 and u["max_reduces"] > 0,
+                 f"15d rank {r} {name}: not the gathered route")
+
+        e = out["15e"]
+        gap = abs(e["theta"] - lensing12["varpro"])
+        phase(f"phase 15e rank {r} [{card}] lensing n={N4_SMALL} "
+              f"nsims={NSIMS4_SMALL} VarPro on field=2: θ̂ {e['theta']:.5f} "
+              f"(phase 12 {lensing12['varpro']:.5f}, |Δ| {gap:.5f} < 0.1) "
+              f"in {e['steps']} steps, {e['s']:.2f} s; unconverged by step "
+              f"{e['unconverged_by_step']}, failed by step "
+              f"{e['failed_by_step']}; polish entries "
+              f"{e['polish_entries']}; solver counts {e['solver_counts']}; "
+              f"collectives {e['collectives']}, gathers {e['gathers']} "
+              f"({e['gather_bytes']} bytes), field maxima "
+              f"{e['max_reduces']}; peak {e['peak_GiB']:.2f} GiB")
+        gate(e["unconverged_by_step"][-1] == 0 and
+             not any(e["failed_by_step"]),
+             f"15e rank {r}: a MAP did not converge")
+        gate(gap < 0.1, f"15e rank {r}: θ̂ off phase 12")
+        for name, shapes in out["shapes"].items():
+            missed = sorted({tuple(x) for x in shapes} - held[name])
+            phase(f"phase 15 rank {r} {name}: launched at "
+                  f"{sorted(tuple(x) for x in shapes)}; not held against "
+                  f"the plain version: {missed}")
+            gate(not missed, f"{name} ran at shapes no phase held: {missed}")
+    for key in ("15c", "15e"):
+        gate(ranks[0][key]["theta"] == ranks[1][key]["theta"],
+             f"{key}: the ranks ended apart")
+    return ranks[0]["15c"]
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1794,7 +2337,13 @@ def main():
         check_theta_score("slice 4 pixel GRF", pixel_score_inputs(
             muse_tpu_torch.models.grf_problem(n=1024, sigma_noise=0.01,
                                               device=dev)),
-            (NSIMS4_GRF + 1, H_LANES4_PIXEL[1]), (0.5, 0.0)))
+            (NSIMS4_GRF + 1, H_LANES4_PIXEL[1]), (0.5, 0.0)),
+        *(check_theta_score(
+            f"slice 6 pixel GRF field rows {rows.start}:{rows.stop or 1024}",
+            field_rows(pixel_score_inputs(muse_tpu_torch.models.grf_problem(
+                n=1024, sigma_noise=0.01, device=dev)), rows),
+            QUAD_SLICED_PIXEL, (0.5, 0.0))
+          for rows in (slice(0, PIXEL_ROWS15), slice(PIXEL_ROWS15, None))))
 
     # 4. the main path at full width
     prob = grf_field_problem(n=1024, sigma_noise=0.01, device=dev)
@@ -1895,6 +2444,8 @@ def main():
     for rows in (slice(0, MESH_ROWS), slice(MESH_ROWS, None)):
         shapes += [(B, 1024, 0, rows) for B in FUSED_SLICED]
         shapes += [(B, 1024, NBANDS4, rows) for B in FUSED_SLICED_BAND]
+    for rows in (slice(0, PIXEL_ROWS15), slice(PIXEL_ROWS15, None)):
+        shapes += [(B, 1024, 0, rows) for B in FUSED_SLICED_PIXEL]
     for B, n, bands, rows in shapes + [(3, 100, 0, None), (5, 33, 0, None)]:
         p, A = pcg_inputs(B, n, seed=B + n, bands=bands, rows=rows)
         held["spectrum_quadform_and_grad"].add(tuple(p.shape))
@@ -2056,11 +2607,11 @@ def main():
     phase(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s")
     launches_slice3, fused_cg3 = phase9(card, prob3, mle3, sig_F3)
     phase(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s")
-    phase10(card, dev)
+    users10 = phase10(card, dev)
     phase(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     phase11(card, dev)
     phase(f"phases 1-11 took {time.perf_counter() - t_start:.1f} s")
-    phase12(card, dev)
+    lensing12 = phase12(card, dev)
     phase(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     slice4 = phase13(card, dev, field=(prob, res))
     phase(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s")
@@ -2068,6 +2619,11 @@ def main():
                    sig_F2=sig_F2, band13=slice4, held=held, comp2=comp2,
                    prob2=prob2)
     phase(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+    phase15a(card, prob2, comp2, res2.theta)
+    phase15b(card, dev, prob)
+    field15 = phase15(card, dev, prob, slice4["pixel"], users10, lensing12,
+                      held)
+    phase(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -2087,7 +2643,7 @@ def main():
         "name": "spectrum_quadform", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:137",
-        "launches": mesh["c"]["quad_launches"], "max_abs_err": abs_err_path,
+        "launches": field15["quad_launches"], "max_abs_err": abs_err_path,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
         "bound_by": quad_by, "library_ms": library_ms,
         "launches_by_path": {"slice1_field_grf": launches_slice1,
@@ -2096,11 +2652,13 @@ def main():
                              "slice4_grf_pixel": slice4["quad_grf_pixel"],
                              "slice5_mesh_14a": mesh["a"]["quad_launches"],
                              "slice5_mesh_14b_rank0": mesh["b"]["quad_launches"],
-                             "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"]}}, {
+                             "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"],
+                             "slice6_pixel_field_15c_rank0":
+                                 field15["quad_launches"]}}, {
         "name": "spectrum_quadform_and_grad", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:73",
-        "launches": mesh["c"]["fused_launches"],
+        "launches": field15["fused_launches"],
         "max_abs_err": abs_err_fused,
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
         "bound_by": fused_by, "library_ms": None,
@@ -2111,7 +2669,9 @@ def main():
                              "slice5_mesh_14a": mesh["a"]["fused_launches"],
                              "slice5_mesh_14b_rank0": mesh["b"]["fused_launches"],
                              "slice5_mesh_14c_rank0": mesh["c"]["fused_launches"],
-                             "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"]}}]}))
+                             "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"],
+                             "slice6_pixel_field_15c_rank0":
+                                 field15["fused_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

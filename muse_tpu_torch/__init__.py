@@ -31,6 +31,19 @@ point (``mesh=`` on ``muse``, ``muse_fit``, ``get_J``, ``get_H``), the field
 axis for the packed spectral models (``grf_spectral_problem``,
 ``bandpower_problem``), and ``muse_fit(profile_dir=...)`` on
 ``torch.profiler``.
+
+Slice 6 gives the field axis to every problem, by two routes
+(``solver/compiled.py``): the problems built with ``mesh=`` (the packed
+spectral models and, new, the pixel ``grf_problem``, whose entry and exit
+FFTs gather each lane's field) sum per-rank partial sums; every other
+problem (``SimpleMuseProblem``, the funnel family, the PPL with or without
+a θ-bijector, ``grf_field_problem``, lensing) keeps its solver's vectors as
+this rank's columns of the latent, with the field hooks of the L-BFGS,
+VarPro and Newton-CG loops, and evaluates its own functions on the
+gathered latent. ``grf_field_problem(use_pallas=False)`` runs the
+quadform's plain version, the JAX package's A/B switch. With it the port
+does everything the JAX package does, apart from what is left out on
+purpose (ROADMAP).
 """
 
 import torch as _torch
@@ -57,4 +70,4 @@ __all__ = [
     "transforms",
 ]
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -201,8 +201,11 @@ def _field_share(mesh, n: int, solver: str, who: str):
     if mesh.field_axis is None:
         return slice(None), n, None
     if solver == "lbfgs":
-        raise ValueError(f"{who}(solver='lbfgs') cannot take a field axis: "
-                         "the generic L-BFGS sums over whole lanes")
+        raise ValueError(f"{who}(solver='lbfgs') cannot be built with a "
+                         "field axis: the generic L-BFGS evaluates the "
+                         "log-likelihood on whole lanes. Build it without "
+                         "mesh= and pass the mesh to the solver only (the "
+                         "gathered route, solver/compiled.py)")
     rows = mesh.field_rows(n)
     m2 = 2 * (n // 2 + 1)
     return (slice(rows.start * m2, rows.stop * m2), rows.stop - rows.start,
@@ -308,13 +311,29 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         cancellation-free sum ½ Σ w p ∂C/(C+σ²)², p = |x̂|²/n², through the
         ``spectrum_quadform`` kernel: one launch per batched evaluation and
         θ component.
-      * ``fft_mode``: ``"auto"`` and ``"fft"`` are ``torch.fft``. The
-        einsum DFT (``"matmul"``) exists in the JAX package for sharded
-        layouts that XLA's FFT rejects and is not ported (ROADMAP, "Left
-        out on purpose").
-      * ``mesh``: a sims-only :class:`~muse_tpu_torch.parallel.SimsMesh`
-        is taken (the solver shards the sims). A field axis needs a
-        distributed 2D FFT and raises (ROADMAP Queue 1 item 14).
+      * ``fft_mode``: ``"auto"`` and ``"fft"`` are ``torch.fft`` (under a
+        field axis, on the gathered field). The einsum DFT (``"matmul"``)
+        exists in the JAX package for sharded layouts that XLA's FFT
+        rejects and is not ported (ROADMAP, "Left out on purpose").
+      * ``mesh``: a :class:`~muse_tpu_torch.parallel.SimsMesh`. Its sims
+        axis is the solver's business. Under a field axis of size f this
+        rank holds the pixel rows ``mesh.field_rows(n)`` of every lane's
+        latent u (n/f rows of n), and the PCG state lives on the same rows
+        of the packed (n, 2m) grid: the fused kernel runs on
+        (B, n/f, 2m) at every CG step and the solver sums the CG's dot
+        products over the field axis (the sharded-sum route,
+        ``solver/compiled.py``). Only a solve's entry ``rfft2`` of the
+        warm start and its exit ``irfft2`` touch a whole field: each
+        gathers the lanes' fields whole (``SimsMesh.gather_field``),
+        transforms them locally and keeps this rank's rows. x and the
+        whites stay whole on every rank (the sampler's √C is a local
+        transform), and the θ-score runs the quadform on this rank's rows
+        of x̂, a partial sum that the solver sums over the axis. JAX's
+        ``fft_mode="fft"`` does the same (reshard, local FFT, reshard).
+        Its ``log_like`` needs the whole latent, so the generic L-BFGS
+        (``solver="lbfgs"``) and implicit-diff ``get_H`` are refused on
+        this route: build the problem without ``mesh=`` and pass the mesh
+        to the solver only, and they run on the gathered route.
 
     ``x_obs`` (an (n, n) array or tensor) is the data; without it the data
     are drawn at ``theta_true`` from ``data_seed``. ``config``, when given,
@@ -334,26 +353,27 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
             "grf_problem(fft_mode='matmul'): the einsum DFT guards a fault "
             "of XLA's FFT under sharding and is left out of the port "
             "(ROADMAP, 'Left out on purpose')")
-    if mesh is not None:
-        from ..parallel.mesh import SimsMesh
-        if not isinstance(mesh, SimsMesh):
-            raise TypeError("grf_problem: mesh must be a SimsMesh "
-                            f"(parallel.make_sims_mesh), got "
-                            f"{type(mesh).__name__}")
-        if mesh.field_axis is not None:
-            raise NotImplementedError(
-                "grf_problem(mesh=...) with a field axis needs a distributed "
-                "2D FFT (pencil transposes through all_to_all), not ported "
-                "yet (ROADMAP Queue 1 item 14); a sims-only mesh works")
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
                               device=device)
     n = cfg.n
+    # this rank's packed share (the (n, 2m) grid's rows ``prows`` as the
+    # slice ``pcols`` of a packed (L,)) and the CG's field sum
+    pcols, nrows, reduce = _field_share(mesh, n, solver, "grf_problem")
+    field = reduce is not None
+    rows = mesh.field_rows(n) if field else slice(0, n)
+    ucols = slice(rows.start * n, rows.stop * n)   # ... of a flat pixel u
     s2 = cfg.sigma_noise ** 2
     dev = cfg.device
     nr = n // 2 + 1
-    grid = (n, 2 * nr)       # the kernels' (n, 2m) view of a packed (L,)
+    L = 2 * n * nr
+    grid = (nrows, 2 * nr)   # the kernels' view of this rank's packed rows
     sqw_n = torch.sqrt(cfg.herm_weight) / n   # isometric pack scale
     neg_logk = -torch.log(cfg.k + cfg.k0)
+
+    def gather(V, cols, size):
+        """Every lane's whole field from this rank's columns (V itself
+        without a field axis)."""
+        return mesh.gather_field(V, cols, size) if field else V
 
     # CRN white split (problem.py): the pixel whites are θ-independent, so
     # the muse loop hoists the RNG out of the outer iteration (the
@@ -364,12 +384,19 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
 
     def x_of_white(W, theta):
         u, e = W
-        return cfg.apply_sqrtC(u, theta) + cfg.sigma_noise * e, u
+        return cfg.apply_sqrtC(u, theta) + cfg.sigma_noise * e, u[rows]
 
     def sample_x_z(gen, theta):
         return x_of_white(sample_white(gen), theta)
 
     def log_like(x, u, theta):
+        if field:
+            raise NotImplementedError(
+                "grf_problem built with a field-axis mesh= holds this rank's "
+                "rows of the latent, and its log-likelihood needs the whole "
+                "latent (the generic L-BFGS MAP, implicit-diff get_H): build "
+                "it without mesh= and pass the mesh to the solver only (the "
+                "gathered route)")
         r = x - cfg.apply_sqrtC(u, theta)
         return -0.5 * (torch.sum(r * r) / s2 + torch.sum(u * u))
 
@@ -392,13 +419,15 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         solver's tolerance for ``"cg"``)."""
         C = cfg.spectrum(theta)
         wq = cfg.herm_weight * C / ((C + s2) ** 2 * (n * n))
-        z = pack_rfft2(x)[None]
-        g0 = 0.5 * spectrum_quadform(z, pack_weights(wq))[0]
+        # this rank's rows of x̂ (all of them without a field axis)
+        z = pack_rfft2(x)[None, rows]
+        g0 = 0.5 * spectrum_quadform(z, pack_weights(wq)[rows])[0]
         if not cfg.infer_tilt:
             scalar = (theta.dim() if isinstance(theta, torch.Tensor)
                       else np.ndim(theta)) == 0
             return g0 if scalar else g0.reshape(1)
-        g1 = 0.5 * spectrum_quadform(z, pack_weights(neg_logk * wq))[0]
+        g1 = 0.5 * spectrum_quadform(
+            z, pack_weights(neg_logk * wq)[rows])[0]
         return torch.stack([g0, g1])
 
     # batched MAP solvers over the whitened latent; the normal equations
@@ -419,16 +448,20 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         hermitian-consistent subspace because the spectrum is radial."""
         B = xs.shape[0]
         C = cfg.spectrum(_theta_of(th_flat))
-        A = (1.0 + C / s2).reshape(-1).repeat(2)[None]   # (1, 2·n·nr)
-        bt = _pack_spectrum(torch.sqrt(C) * cfg.rfft2(xs) / s2, sqw_n)
-        u0t = _pack_spectrum(cfg.rfft2(Z0.reshape(B, n, n)), sqw_n)
+        A = (1.0 + C / s2).reshape(-1).repeat(2)[None, pcols]   # (1, L/f)
+        bt = _pack_spectrum(torch.sqrt(C) * cfg.rfft2(xs) / s2,
+                            sqw_n)[:, pcols]
+        U0 = gather(Z0, ucols, n * n).reshape(B, n, n)
+        u0t = _pack_spectrum(cfg.rfft2(U0), sqw_n)[:, pcols]
+        del U0
         ut, aux = _packed_diag_pcg(A, bt, u0t, atol, cg_maxiter, grid,
-                                   nz=n * n)
-        return cfg.irfft2(_unpack_spectrum(ut, sqw_n)).reshape(B, -1), aux
+                                   nz=n * n, reduce=reduce)
+        U = cfg.irfft2(_unpack_spectrum(gather(ut, pcols, L), sqw_n))
+        return U[:, rows].reshape(B, -1), aux
 
     def zhat_direct(xs, Z0, th_flat, atol):
         C = cfg.spectrum(_theta_of(th_flat))
-        Z = cfg.irfft2(torch.sqrt(C) * cfg.rfft2(xs) / (s2 + C))
+        Z = cfg.irfft2(torch.sqrt(C) * cfg.rfft2(xs) / (s2 + C))[:, rows]
         B = Z.shape[0]
         return Z.reshape(B, -1), {
             "converged": torch.ones(B, dtype=torch.bool, device=dev),
@@ -451,6 +484,7 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         sample_white=sample_white, x_of_white=x_of_white)
     prob.name = "grf_problem"
     prob.grf_config = cfg
+    _set_field(prob, mesh, ucols, n * n)
 
     def h_precond(w, x, th_flat):
         """Ready-made CG preconditioner for implicit-diff get_H (the Pl
@@ -470,7 +504,7 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                       sigma_noise: float = 1.0, gamma: float = 2.0,
                       k0: float = 1.0, theta_true: float = 0.0,
                       data_seed: int = 42, x_obs=None,
-                      prior_std: float = 3.0,
+                      prior_std: float = 3.0, use_pallas: bool = True,
                       device="cuda") -> SimpleMuseProblem:
     """Non-whitened GRF: the latent IS the field z ~ N(0, F⁻¹CF).
 
@@ -478,11 +512,21 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                            + Σ_k w_k log C_k ] + const
 
     The quadform term runs through :func:`spectrum_quadform` (the CUDA
-    kernel on a card). ``x_obs`` (an (n, n) array or tensor) is the data;
-    without it the data are drawn at ``theta_true`` from ``data_seed``.
-    ``config``, when given, fixes the device.
+    kernel on a card). ``use_pallas=False`` sends it through
+    :func:`spectrum_quadform_plain` instead, on the card too, with no
+    kernel launch: the end-to-end A/B switch of the JAX package's argument
+    of the same name (which there picks the Pallas kernel). ``x_obs`` (an
+    (n, n) array or tensor) is the data; without it the data are drawn at
+    ``theta_true`` from ``data_seed``. ``config``, when given, fixes the
+    device.
+
+    Under a field-axis ``mesh=`` passed to the solver the problem takes the
+    gathered route (``solver/compiled.py``): its Wiener MAP and its
+    log-likelihood, the quadform included, run on the whole field.
     """
-    from ..ops.grf_spectrum import pack_rfft2, pack_weights, spectrum_quadform
+    from ..ops.grf_spectrum import (pack_rfft2, pack_weights,
+                                    spectrum_quadform,
+                                    spectrum_quadform_plain)
 
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, False, device=device)
     n = cfg.n
@@ -497,10 +541,12 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                                               device=dev)
         return x, z
 
+    _quadform = spectrum_quadform if use_pallas else spectrum_quadform_plain
+
     def log_like(x, z, theta):
         C = cfg.spectrum(theta)
         invCw2 = pack_weights(cfg.herm_weight / C)
-        quad = spectrum_quadform(pack_rfft2(z)[None], invCw2)[0] / n ** 2
+        quad = _quadform(pack_rfft2(z)[None], invCw2)[0] / n ** 2
         logdet = torch.sum(cfg.herm_weight * torch.log(C))
         r = x - z
         return -0.5 * (torch.sum(r * r) / s2 + quad + logdet)

@@ -194,7 +194,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
     respected.
     """
     from ..ops.newton_cg import batched_newton_cg
-    from ..ops.varpro import batched_varpro
+    from ..ops.varpro import batched_varpro, reduced_value_and_grad
 
     solvers = ("auto", "varpro", "newton", "gn", "lbfgs")
     if solver not in solvers:
@@ -360,11 +360,23 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
             return _irfft2(_rfft2(R) / M).reshape(Rflat.shape)
         return precond
 
-    def zhat_newton(xs, Z0, th_flat, atol):
-        res = batched_newton_cg(
-            _vg_full(xs, th_flat), Z0, g_atol=atol,
-            max_outer=gn_max_outer, cg_maxiter=gn_cg_maxiter,
-            precond=_precond2(th_flat))
+    def _newton(xs, Z0, th_flat, atol, field, max_outer):
+        """``batched_newton_cg`` on the joint latent: on whole lanes, or
+        with ``field`` (a FieldColumns of the gathered route) on this
+        rank's columns, the objective, its HVP and the preconditioner
+        evaluated on the gathered latent."""
+        vg = _vg_full(xs, th_flat)
+        kw = dict(g_atol=atol, max_outer=max_outer, cg_maxiter=gn_cg_maxiter)
+        if field is None or field.mesh is None:
+            return batched_newton_cg(vg, Z0, precond=_precond2(th_flat), **kw)
+        return batched_newton_cg(
+            field.value_and_grad(vg), Z0,
+            precond=field.on_columns(_precond2(th_flat)),
+            reduce=field.reduce, reduce_max=field.reduce_max,
+            hvp_at=field.hvp_at(vg), **kw)
+
+    def zhat_newton(xs, Z0, th_flat, atol, field=None):
+        res = _newton(xs, Z0, th_flat, atol, field, gn_max_outer)
         aux = {"converged": res.converged, "failed": res.failed,
                "iterations": res.iterations,
                "cg_iterations": res.cg_iterations,
@@ -441,8 +453,44 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
             return _irfft2(_unpack(R)).abs().amax((-2, -1))
 
         return {"obs_op": obs_op, "lin_ops": lin_ops,
-                "precond_lin": precond_lin, "lin_sup": lin_sup,
-                "pack": _pack, "unpack": _unpack}
+                "precond_lin": precond_lin, "precond_diag": Mz_packed,
+                "lin_sup": lin_sup, "pack": _pack, "unpack": _unpack}
+
+    def _varpro_on_columns(ops, xs, Z0w, atol, field):
+        """``batched_varpro`` on the gathered route: u_nl and the packed
+        z̃ kept as this rank's columns of each (from the gathered warm
+        start ``Z0w``), the explicit pair G (columns → the whole
+        observation) and Gᵀ (whole → columns) and the reduced objective on
+        the gathered blocks, the residual's pixel sup-norm on the gathered
+        z̃. Returns the result with its blocks gathered whole."""
+        from ..parallel.mesh import FieldColumns
+        B = Z0w.shape[0]
+        uc = FieldColumns(field.mesh, n2)
+        zc = FieldColumns(field.mesh, 2 * n * nr)
+
+        def lin_ops(Uc):
+            G, Gt = ops["lin_ops"](uc.gather(Uc))
+            return (lambda Zc: G(zc.gather(Zc))), (lambda W: zc.keep(Gt(W)))
+
+        vg = reduced_value_and_grad(ops["obs_op"], xs, s2)
+
+        def f_and_g(Uc, Zc):
+            f, g = vg(uc.gather(Uc), zc.gather(Zc))
+            return f, uc.keep(g)
+
+        Mz = zc.keep(ops["precond_diag"])
+
+        res = batched_varpro(
+            ops["obs_op"], xs, uc.keep(Z0w[:, :n2]),
+            zc.keep(_pack(_rfft2(Z0w[:, n2:].reshape(B, n, n)))),
+            sigma2=s2, g_atol=atol, max_outer=gn_max_outer,
+            inner_maxiter=inner_cg_eff, max_ls=varpro_max_ls, m=m_eff,
+            precond_lin=lambda R: R * Mz,
+            lin_sup=lambda R: ops["lin_sup"](zc.gather(R)), lin_ops=lin_ops,
+            reduce=field.reduce, reduce_max=field.reduce_max,
+            f_and_g=f_and_g)
+        return res._replace(u_nl=uc.gather(res.u_nl),
+                            z_lin=zc.gather(res.z_lin))
 
     # m bounds the outer L-BFGS history (2·m·B·n² floats): the full history
     # at small n (one hard lane at strong lensing gains from it), a short
@@ -450,23 +498,32 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
     # in tens of iterations)
     m_eff = varpro_m if varpro_m is not None else (10 if n < 512 else 5)
 
-    def zhat_varpro(xs, Z0, th_flat, atol):
+    def zhat_varpro(xs, Z0, th_flat, atol, field=None):
         """Two-phase MAP: VarPro for the bulk, a Newton-CG polish for the
         tail. VarPro converges most lanes in tens of reduced iterations;
         the few that stall in the reduced φ-landscape at strong lensing
         finish with warm-started trust-region Newton-CG, whose local
         quadratic convergence is what an iterate near the solution needs
         (converged lanes freeze at polish entry). The polish runs only
-        when a lane is left: one host read decides."""
+        when a lane is left: one host read decides.
+
+        ``field``: on the gathered route of a field axis, Z0 and the
+        result are this rank's columns of the joint latent, and both
+        solvers keep their vectors as columns (their ``reduce`` hooks);
+        the certificate runs on the gathered MAP."""
         B = Z0.shape[0]
         ops = varpro_ops(th_flat)
-        Zt0 = _pack(_rfft2(Z0[:, n2:].reshape(B, n, n)))
-        res = batched_varpro(
-            ops["obs_op"], xs, Z0[:, :n2], Zt0, sigma2=s2, g_atol=atol,
-            max_outer=gn_max_outer, inner_maxiter=inner_cg_eff,
-            max_ls=varpro_max_ls, m=m_eff, precond_lin=ops["precond_lin"],
-            lin_sup=ops["lin_sup"],
-            lin_ops=ops["lin_ops"] if varpro_explicit_adjoint else None)
+        on_cols = field is not None and field.mesh is not None
+        if on_cols:
+            res = _varpro_on_columns(ops, xs, field.gather(Z0), atol, field)
+        else:
+            Zt0 = _pack(_rfft2(Z0[:, n2:].reshape(B, n, n)))
+            res = batched_varpro(
+                ops["obs_op"], xs, Z0[:, :n2], Zt0, sigma2=s2, g_atol=atol,
+                max_outer=gn_max_outer, inner_maxiter=inner_cg_eff,
+                max_ls=varpro_max_ls, m=m_eff,
+                precond_lin=ops["precond_lin"], lin_sup=ops["lin_sup"],
+                lin_ops=ops["lin_ops"] if varpro_explicit_adjoint else None)
         uz_hat = _irfft2(_unpack(res.z_lin)).reshape(B, -1)
         Z = torch.cat([res.u_nl, uz_hat], -1)
         del uz_hat
@@ -486,11 +543,10 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
                "cg_iterations": res.inner_iterations,
                "g_norm": sup_true, "neg_logp": f_true}
         if bool((conv_true | res.failed).all()):
-            return Z, aux
+            return (field.keep(Z) if on_cols else Z), aux
         zhat_varpro.polish_entries += 1
-        pol = batched_newton_cg(
-            vg, Z, g_atol=atol, max_outer=polish_max_outer,
-            cg_maxiter=gn_cg_maxiter, precond=_precond2(th_flat))
+        pol = _newton(xs, field.keep(Z) if on_cols else Z, th_flat, atol,
+                      field, polish_max_outer)
         aux = {"converged": pol.converged, "failed": res.failed & pol.failed,
                "iterations": res.iterations + pol.iterations,
                "cg_iterations": res.inner_iterations + pol.cg_iterations,

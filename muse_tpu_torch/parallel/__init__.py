@@ -1,3 +1,3 @@
-from .mesh import SimsMesh, make_sims_mesh
+from .mesh import FieldColumns, SimsMesh, make_sims_mesh
 
-__all__ = ["SimsMesh", "make_sims_mesh"]
+__all__ = ["FieldColumns", "SimsMesh", "make_sims_mesh"]

@@ -1,5 +1,5 @@
-"""The device mesh: the sims axis for every problem, the field axis for the
-packed spectral models, over ``torch.distributed``.
+"""The device mesh: the sims axis and the field axis for every problem,
+over ``torch.distributed``.
 
 Counterpart of ``muse_tpu/parallel/mesh.py``. JAX shards the batched
 per-sim arrays of one controller over a ``jax.sharding.Mesh`` and lets
@@ -11,18 +11,32 @@ GSPMD partition every step. Here the mesh is one process per device, as
     the same batched step as one device would, and the per-lane results
     are gathered to every rank before the float64 host update. Lane seeds
     are global (``utils/keys.py``), so sharding changes no sim;
-  * the **field axis** (``grf_spectral_problem`` and ``bandpower_problem``
-    only) splits the rows of the packed (n, 2m) grid
-    (:meth:`SimsMesh.field_rows`). Every operator of those models is
-    diagonal in packed coordinates, so a rank computes on its rows and
-    only the per-lane sums over the latent cross ranks: the CG's dot
-    products and norms and the θ-score, each by :meth:`SimsMesh.reduce_field`.
+  * the **field axis** splits every lane's latent (:meth:`SimsMesh.field_rows`)
+    by one of two routes (``solver/compiled.py``):
+
+      - the *sharded-sum route*, for the problems built with ``mesh=``
+        (``grf_spectral_problem``, ``bandpower_problem``, ``grf_problem``):
+        the rank holds rows of the packed (n, 2m) grid (the pixel rows of
+        ``grf_problem``'s latent), its functions compute on those rows, and
+        only the per-lane sums over the latent cross ranks — the CG's dot
+        products and norms and the θ-score, each by
+        :meth:`SimsMesh.reduce_field`. ``grf_problem``'s entry and exit
+        transforms gather each lane's field whole (:meth:`SimsMesh.gather_field`),
+        transform it locally and keep the rank's rows;
+      - the *gathered route*, for every other problem: the solver keeps the
+        rank's columns of each lane's flat latent (and of every vector of
+        its MAP solver), reduces every dot product over the field axis and
+        takes every sup-norm as a max (:meth:`SimsMesh.reduce_field_max`),
+        and evaluates the problem's own functions on the latent gathered
+        whole. This shards the solver's state and its vector arithmetic;
+        each rank still evaluates the log-density on the whole latent.
 
 Only ``all_reduce`` and ``broadcast`` are used: NCCL and gloo both take
-them on CUDA tensors, and gloo has no CUDA ``all_gather``. A gather is an
-``all_reduce(SUM)`` of a zero-filled global buffer in which each rank has
-written only its own block; adding zeros rounds nothing, so it is exact.
-No collective runs inside ``torch.func.vmap`` or ``grad``.
+them on CUDA tensors (SUM and MAX alike), and gloo has no CUDA
+``all_gather``. A gather is an ``all_reduce(SUM)`` of a zero-filled global
+buffer in which each rank has written only its own block; adding zeros
+rounds nothing, so it is exact. No collective runs inside
+``torch.func.vmap`` or ``grad``.
 
 Launch (one process per card, NCCL)::
 
@@ -46,7 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["SimsMesh", "make_sims_mesh"]
+__all__ = ["SimsMesh", "FieldColumns", "make_sims_mesh"]
 
 
 def _block(n: int, parts: int, i: int) -> tuple:
@@ -67,7 +81,9 @@ class SimsMesh:
     ``sims_rank`` and ``field_rank`` on each axis and its global ``rank``,
     the process groups ``sims_group`` and ``field_group``. ``collectives``
     and ``collective_bytes`` count the collectives this rank took part in
-    and the bytes of their buffers."""
+    and the bytes of their buffers; ``gathers``/``gather_bytes`` and
+    ``max_reduces`` count the field gathers and the field maxima among
+    them."""
 
     def __init__(self, device_mesh, device: torch.device,
                  sims_axis: str = "sims", field_axis: Optional[str] = None):
@@ -86,8 +102,15 @@ class SimsMesh:
             self.n_field_shards = device_mesh.size(1)
             self.field_rank = device_mesh.get_local_rank(field_axis)
             self.field_group = device_mesh.get_group(field_axis)
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        """Zero the collective counters."""
         self.collectives = 0
         self.collective_bytes = 0
+        self.gathers = 0
+        self.gather_bytes = 0
+        self.max_reduces = 0
 
     def __repr__(self):
         axes = f"sims={self.n_sims_shards}"
@@ -113,10 +136,11 @@ class SimsMesh:
     # collectives
     # ------------------------------------------------------------ #
 
-    def _all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
+    def _all_reduce(self, t: torch.Tensor, group,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         self.collectives += 1
         self.collective_bytes += t.numel() * t.element_size()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(t, op=op, group=group)
         return t
 
     def reduce_field(self, t: torch.Tensor) -> torch.Tensor:
@@ -126,6 +150,31 @@ class SimsMesh:
         if self.n_field_shards == 1:
             return t
         return self._all_reduce(t.detach().clone(), self.field_group)
+
+    def reduce_field_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum over the field axis of a per-rank value (a new
+        tensor): a lane's sup-norm from each rank's sup-norm over its
+        columns. Every rank of a field group gets the same bits."""
+        if self.n_field_shards == 1:
+            return t
+        self.max_reduces += 1
+        return self._all_reduce(t.detach().clone(), self.field_group,
+                                dist.ReduceOp.MAX)
+
+    def gather_field(self, local: torch.Tensor, cols: slice,
+                     size: int) -> torch.Tensor:
+        """The (…, size) whole of every lane's vector from this rank's
+        columns ``cols`` of it (``local``, (…, cols)), over the field group
+        only, in ``local``'s dtype. Exact: the other ranks' columns are
+        zeros in this rank's buffer."""
+        if self.n_field_shards == 1:
+            return local
+        full = torch.zeros(local.shape[:-1] + (size,), dtype=local.dtype,
+                           device=local.device)
+        full[..., cols] = local
+        self.gathers += 1
+        self.gather_bytes += full.numel() * full.element_size()
+        return self._all_reduce(full, self.field_group)
 
     def gather_sims(self, local, lo: int, n: int) -> np.ndarray:
         """The (n, …) float64 host array of every rank's lanes, from this
@@ -163,6 +212,66 @@ class SimsMesh:
         self.collective_bytes += t.numel() * t.element_size()
         dist.broadcast(t, src=0)
         return t.cpu().numpy()
+
+
+class FieldColumns:
+    """This rank's columns of a length-``size`` vector space on the field
+    axis of ``mesh``: the gathered route's view of one latent (the solver's
+    flat z, or a MAP solver's own blocks).
+
+    ``cols`` is the slice this rank holds; :meth:`gather` completes a
+    (…, cols) block to the (…, size) whole, :meth:`keep` cuts a whole to
+    this rank's columns, :meth:`reduce` sums per-lane partial sums over the
+    axis and :meth:`reduce_max` takes their maximum. With no field axis
+    (``mesh`` None or a field axis of 1) every method is the identity and
+    ``cols`` is every column."""
+
+    def __init__(self, mesh: Optional["SimsMesh"], size: int):
+        self.mesh = mesh if mesh is not None and mesh.n_field_shards > 1 \
+            else None
+        self.size = size
+        self.cols = (slice(0, size) if self.mesh is None
+                     else self.mesh.field_rows(size))
+        self.n = self.cols.stop - self.cols.start
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return local
+        return self.mesh.gather_field(local, self.cols, self.size)
+
+    def keep(self, whole: torch.Tensor) -> torch.Tensor:
+        return whole if self.mesh is None else whole[..., self.cols]
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else self.mesh.reduce_field(t)
+
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else self.mesh.reduce_field_max(t)
+
+    def on_columns(self, op):
+        """A map of whole (…, size) vectors as one of this rank's columns:
+        gather, ``op``, keep."""
+        return lambda V: self.keep(op(self.gather(V)))
+
+    def value_and_grad(self, fn):
+        """A batched value and gradient of whole lanes, ``(B, size) ->
+        ((B,), (B, size))``, as one on this rank's columns: the whole f and
+        this rank's columns of g."""
+        def on_cols(V):
+            f, g = fn(self.gather(V))
+            return f, self.keep(g)
+        return on_cols
+
+    def hvp_at(self, fn):
+        """``batched_newton_cg``'s ``hvp_at`` hook for the whole-lane
+        ``fn`` of :meth:`value_and_grad`: at this rank's columns U, the
+        Hessian-vector product columns → columns. The vjp of the gradient
+        is taken at the gathered U (no collective is differentiated) and
+        its graph built once; each product gathers its vector."""
+        def at(U):
+            _, vjp_fn = torch.func.vjp(lambda W: fn(W)[1], self.gather(U))
+            return lambda v: self.keep(vjp_fn(self.gather(v))[0])
+        return at
 
 
 def make_sims_mesh(*, sims: Optional[int] = None, field: int = 1,

@@ -95,11 +95,18 @@ class MuseProblem:
     name: Optional[str] = None
 
     #: the :class:`~muse_tpu_torch.parallel.SimsMesh` whose field axis
-    #: shards this problem's latent, or None. A model that supports a field
-    #: axis sets it, with ``field_slice`` (this rank's slice of the flat
-    #: latent) and ``field_size`` (the whole latent's length); its
-    #: ``log_like`` and ``grad_theta_log_like`` are then this rank's partial
-    #: sums over its coordinates, which the solver sums over the axis.
+    #: shards this problem's latent on the sharded-sum route, or None. A
+    #: model built with ``mesh=`` sets it, with ``field_slice`` (this rank's
+    #: slice of the flat latent) and ``field_size`` (the whole latent's
+    #: length); its ``custom_zhat`` and ``grad_theta_log_like`` then work on
+    #: this rank's coordinates and return partial sums, which the solver
+    #: sums over the axis. Any other problem solved with a field-axis mesh
+    #: takes the gathered route, whose slice and length the solver keeps
+    #: (``CompiledProblem.field_slice``/``field_size``), and sees the whole
+    #: latent in every function it defines. A ``custom_zhat`` that takes a
+    #: ``field`` keyword (a :class:`~muse_tpu_torch.parallel.FieldColumns`)
+    #: runs there on this rank's columns itself; any other runs on the
+    #: gathered latent.
     field_mesh = None
     field_slice: slice = slice(None)
     field_size: Optional[int] = None

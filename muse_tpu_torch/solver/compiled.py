@@ -32,23 +32,46 @@ x's leaves are stacked, mixed and indexed leaf by leaf. The JAX package's
 ``optimization_barrier`` fences, odd-lane padding and value certifier
 guard against faults of the TPU compiler and have no counterpart here.
 
-A problem whose latent is sharded over the field axis of a mesh
-(``problem.field_mesh``, ``parallel/mesh.py``) computes per-lane sums over
-this rank's coordinates only. The θ-scores, implicit H's contractions over
-z and its CG's dot products are then summed over the field axis, each
-AFTER its ``vmap``: no collective runs inside a ``torch.func`` transform.
-Such a problem's ``log_like`` must be a pure sum over coordinates (no
-per-lane term outside the sum, which the reduction would count once per
-rank), so a θ-bijector, whose volume term is such a term, is refused.
+Under the field axis of a mesh (``parallel/mesh.py``) the route is decided
+once, here, from ``problem.field_mesh`` against the solver's ``mesh``:
+
+  * the **sharded-sum route** — a problem built with that ``mesh=``
+    (``problem.field_mesh``): its functions see this rank's coordinates and
+    compute per-lane partial sums. The θ-scores, implicit H's contractions
+    over z and its CG's dot products are summed over the field axis, each
+    AFTER its ``vmap``. Its ``log_like`` must be a pure sum over
+    coordinates (no per-lane term outside the sum, which the reduction
+    would count once per rank), so a θ-bijector, whose volume term is such
+    a term, is refused there;
+  * the **gathered route** — any other problem, solved with a field-axis
+    ``mesh=``. The solver owns z: each lane's flat z is kept as this
+    rank's columns ``mesh.field_rows(nz)`` (:attr:`cols`, a
+    :class:`~muse_tpu_torch.parallel.FieldColumns`), and so are the MAP
+    solvers' vectors (``batched_lbfgs``'s and ``batched_cg``'s ``reduce``
+    hooks; a ``custom_zhat`` with a ``field`` keyword runs on columns).
+    The problem's own functions (``log_like`` and its gradients, a
+    ``custom_zhat`` without that keyword, the implicit-H preconditioner)
+    run on z gathered whole, and this rank keeps its columns of what they
+    return. f, ∇θ and the θ-scores are then whole on every rank and are
+    not reduced again; a θ-bijector's volume term is counted once, as
+    without a mesh. The route shards the solver's state and its vector
+    arithmetic; each rank still evaluates the log-density on the whole
+    latent.
+
+Every gather comes before a ``vmap`` and every reduction after it: no
+collective runs inside a ``torch.func`` transform.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import torch
 from torch.func import grad, grad_and_value, hessian, jacfwd, jvp, vmap
 
 from ..ops.cg import batched_cg
 from ..ops.lbfgs import batched_lbfgs
+from ..parallel.mesh import FieldColumns
 from ..problem import MuseProblem
 from ..theta import ThetaSpec
 from ..utils.keys import lane_generator
@@ -66,11 +89,15 @@ class CompiledProblem:
     """Batched view of a :class:`MuseProblem` on its device.
 
     ``lbfgs_memory`` and ``lbfgs_max_iters`` configure the generic MAP
-    solver (``m`` and ``max_iters`` of :func:`batched_lbfgs`)."""
+    solver (``m`` and ``max_iters`` of :func:`batched_lbfgs`). ``mesh`` is
+    the solver's :class:`~muse_tpu_torch.parallel.SimsMesh`: with a field
+    axis that the problem was not built with, the problem takes the
+    gathered route (module docstring), and ``nz`` is then this rank's
+    count of columns of a lane's latent."""
 
     def __init__(self, problem: MuseProblem, spec: ThetaSpec, theta0_flat,
                  *, dtype=torch.float32, lbfgs_memory: int = 10,
-                 lbfgs_max_iters: int = 500):
+                 lbfgs_max_iters: int = 500, mesh=None):
         self.problem = problem
         self.spec = spec
         self.dtype = dtype
@@ -81,7 +108,6 @@ class CompiledProblem:
         _, z0 = problem.sample_x_z(lane_generator(0, self.device),
                                    spec.unflatten(self.theta(theta0_flat)))
         self.zspec = TreeSpec(z0)
-        self.nz = self.zspec.n
         self.x_obs = tree_map(lambda v: v.to(self.device), problem.x)
         self.field = problem.field_mesh
         if self.field is not None and problem.theta_bijector is not None:
@@ -89,11 +115,36 @@ class CompiledProblem:
                 f"{problem.name or type(problem).__name__} shards its latent "
                 "over a field axis and has a θ-bijector: the log-volume term "
                 "is not a sum over coordinates")
+        # the gathered route: a field axis the problem was not built with
+        gathered = (self.field is None and mesh is not None
+                    and mesh.field_axis is not None)
+        self.cols = FieldColumns(mesh if gathered else None, self.zspec.n)
+        self.gathered = self.cols.mesh is not None
+        self.nz = self.cols.n
+        # the per-lane sum over the field axis of a sum over z, for either
+        # route (None without a field axis)
+        self.zsum = (self.field.reduce_field if self.field is not None
+                     else self.cols.reduce if self.gathered else None)
+        # the whole latent's length and this rank's slice of it (for a z0
+        # given whole and for gathering maps), on either route
+        if self.field is not None:
+            self.field_slice = problem.field_slice
+            self.field_size = problem.field_size
+        elif self.gathered:
+            self.field_slice, self.field_size = self.cols.cols, self.cols.size
+        else:
+            self.field_slice, self.field_size = slice(None), None
 
     def _field_sum(self, t):
-        """``t``, a per-lane sum over this rank's coordinates, summed over
-        the field axis (``t`` itself without one)."""
+        """``t``, a per-lane partial sum over this rank's coordinates on the
+        sharded-sum route, summed over the field axis (``t`` itself
+        otherwise: on the gathered route it is already whole)."""
         return t if self.field is None else self.field.reduce_field(t)
+
+    def _whole(self, Z):
+        """Every lane's whole flat z from this rank's columns: a gather on
+        the gathered route, ``Z`` itself otherwise."""
+        return self.cols.gather(Z)
 
     def theta(self, th_flat) -> torch.Tensor:
         """A flat θ (numpy or tensor) on the device in the working dtype."""
@@ -121,7 +172,8 @@ class CompiledProblem:
         return x, self.zspec.flatten(z).to(self.dtype)
 
     def _sample_batch(self, seeds, th_flats):
-        """Sample lane i from ``seeds[i]`` at θ ``th_flats[i]`` and stack."""
+        """Sample lane i from ``seeds[i]`` at θ ``th_flats[i]`` and stack
+        (z as the problem draws it: whole on the gathered route)."""
         xs, Zs = zip(*(self._sample_flat(s, t)
                        for s, t in zip(seeds, th_flats)))
         return tree_map(lambda *v: torch.stack(v), *xs), torch.stack(Zs)
@@ -132,14 +184,17 @@ class CompiledProblem:
         return self.zspec.flatten(g).to(self.dtype)
 
     def _zhat_guesses(self, xs, Zs, th_flat):
-        """:meth:`_zhat_guess_flat` of every lane, stacked."""
-        return torch.stack([self._zhat_guess_flat(_lane(xs, i), Zs[i], th_flat)
-                            for i in range(Zs.shape[0])])
+        """:meth:`_zhat_guess_flat` of every lane from its true z as the
+        problem draws it, stacked, as this rank's columns."""
+        return self.cols.keep(torch.stack([
+            self._zhat_guess_flat(_lane(xs, i), Zs[i], th_flat)
+            for i in range(Zs.shape[0])]))
 
     def _grads_th(self, xs, Z, th_flat):
         """Per-lane ∂θ log_like in untransformed space: the problem's
         analytic override when given (src/interface.jl:56-58), else
-        ``vmap(grad)`` — one batched evaluation for all lanes."""
+        ``vmap(grad)`` — one batched evaluation for all lanes. ``Z`` is
+        whole on the gathered route (:meth:`_whole` of the solver's)."""
         if self.problem.grad_theta_log_like is not None:
             def one(x, z):
                 g = self.problem.grad_theta_log_like(
@@ -156,9 +211,20 @@ class CompiledProblem:
     def _solve_maps(self, xs, Z0, th_flat, atol):
         """All lanes' latent MAP solves → (Z, aux) with per-lane
         diagnostics (the ``ẑ_history`` analog): the problem's
-        ``custom_zhat``, else batched L-BFGS on −log_like."""
-        if self.problem.custom_zhat is not None:
-            Z, aux = self.problem.custom_zhat(xs, Z0, th_flat, atol)
+        ``custom_zhat``, else batched L-BFGS on −log_like. On the gathered
+        route Z0 and Z are this rank's columns: a ``custom_zhat`` with a
+        ``field`` keyword takes them as they are, any other runs on Z0
+        gathered whole, and the L-BFGS keeps its vectors as columns with
+        its ``reduce`` hooks."""
+        zhat = self.problem.custom_zhat
+        if zhat is not None:
+            if not self.gathered:
+                Z, aux = zhat(xs, Z0, th_flat, atol)
+            elif "field" in inspect.signature(zhat).parameters:
+                Z, aux = zhat(xs, Z0, th_flat, atol, field=self.cols)
+            else:
+                Z, aux = zhat(xs, self._whole(Z0), th_flat, atol)
+                Z = self.cols.keep(Z)
             B = Z.shape[0]
             aux.setdefault("converged", torch.ones(B, dtype=torch.bool,
                                                    device=Z.device))
@@ -170,11 +236,15 @@ class CompiledProblem:
             return -self._ll(x, z, th_flat)
 
         def fn(Z):
-            g, f = vmap(grad_and_value(neg_ll, argnums=1))(xs, Z)
-            return f, g
+            g, f = vmap(grad_and_value(neg_ll, argnums=1))(xs,
+                                                           self._whole(Z))
+            return f, self.cols.keep(g)
 
+        hooks = ({"reduce": self.cols.reduce,
+                  "reduce_max": self.cols.reduce_max} if self.gathered
+                 else {})
         res = batched_lbfgs(fn, Z0, g_atol=atol, m=self.lbfgs_memory,
-                            max_iters=self.lbfgs_max_iters)
+                            max_iters=self.lbfgs_max_iters, **hooks)
         return res.z, {"converged": res.converged, "failed": res.failed,
                        "iterations": res.iterations, "g_norm": res.g_norm,
                        "neg_logp": res.f}
@@ -192,12 +262,14 @@ class CompiledProblem:
 
         xs = tree_map(mix, self.x_obs, xs_all)
         Z, aux = self._solve_maps(xs, Z_prev, th, atol)
-        g = self._grads_th(xs, Z, th)
+        Zw = self._whole(Z)
+        g = self._grads_th(xs, Zw, th)
         if self.problem.theta_bijector is None:
             g_t = g        # identity transform: the two gradients coincide
         else:
             g_t = vmap(lambda x, z: grad(
-                lambda tt: self._ll_t(x, z, tt))(th_t))(xs, Z)
+                lambda tt: self._ll_t(x, z, tt))(th_t))(xs, Zw)
+        del Zw
         return {"g": g, "g_t": g_t, "Z": Z, **aux}
 
     def muse_step(self, th, th_t, seeds, Z_prev, lane_ids, atol):
@@ -276,8 +348,8 @@ class CompiledProblem:
         """get_J per-sim pipeline: sample at θ₀, MAP warm-started from the
         true z, untransformed θ-gradient (src/muse.jl:510-513)."""
         xs, Zs = self._sample_batch(seeds, [th] * len(seeds))
-        Z, aux = self._solve_maps(xs, Zs, th, atol)
-        return {"g": self._grads_th(xs, Z, th), "Z": Z, **aux}
+        Z, aux = self._solve_maps(xs, self.cols.keep(Zs), th, atol)
+        return {"g": self._grads_th(xs, self._whole(Z), th), "Z": Z, **aux}
 
     def h_fiducial(self, seeds, th, atol):
         """get_H fiducial fits: sims at θ₀, MAP from ẑ_guess_from_truth
@@ -294,7 +366,8 @@ class CompiledProblem:
         θ₀ + offset·εⱼeⱼ with the SAME seed, MAP at the fiducial θ₀
         warm-started from the sim's fiducial fit, θ-gradient at θ₀
         (src/muse.jl:426-433). All nsims·nθ·stencil solves run as one
-        batch. Returns g of shape (nsims, nθ, stencil, nθ)."""
+        batch. Returns g of shape (nsims, nθ, stencil, nθ). ``Zfid`` is
+        the solver's (this rank's columns on the gathered route)."""
         nsims, ntheta, ns = len(seeds), th.shape[0], len(offsets)
         eye = torch.eye(ntheta, dtype=self.dtype, device=self.device)
         offs = torch.as_tensor(offsets, dtype=self.dtype, device=self.device)
@@ -308,7 +381,8 @@ class CompiledProblem:
         Z0 = Zfid[:, None, :].expand(nsims, ntheta * ns, self.nz)
         xs, _ = self._sample_batch(flat_seeds, flat_th)
         Z, aux = self._solve_maps(xs, Z0.reshape(-1, self.nz), th, atol)
-        g = self._grads_th(xs, Z, th).reshape(nsims, ntheta, ns, ntheta)
+        g = self._grads_th(xs, self._whole(Z), th).reshape(nsims, ntheta, ns,
+                                                           ntheta)
         return {"g": g, "Z": Z,
                 "converged": aux["converged"].reshape(nsims, ntheta, ns),
                 "failed": aux["failed"].reshape(nsims, ntheta, ns)}
@@ -363,6 +437,10 @@ class CompiledProblem:
         S = zs.shape[0]
         zhat, _ = self._solve_maps(xs, self._zhat_guesses(xs, zs, th), th,
                                    atol)
+        # the problem's functions see the whole latent (gathered route);
+        # the CG's vectors are this rank's columns of it
+        zhat = self._whole(zhat)
+        cols = self.cols
 
         def grad_z(x, z, t):
             return grad(lambda z_: self._ll(x, z_, t))(z)
@@ -388,23 +466,29 @@ class CompiledProblem:
         zhat_l = zhat.repeat_interleave(nth, dim=0)
 
         def neg_hvp(V):
-            return -vmap(lambda x, zh, v: jvp(
-                lambda z_: grad_z(x, z_, th), (zh,), (v,))[1])(x_l, zhat_l, V)
+            return -cols.keep(vmap(lambda x, zh, v: jvp(
+                lambda z_: grad_z(x, z_, th), (zh,), (v,))[1])(
+                    x_l, zhat_l, cols.gather(V)))
 
         M = None if precond is None else (
-            lambda R: vmap(lambda w, x: precond(w, x, th))(R, x_l))
-        rhs = -dFdth1.transpose(1, 2).reshape(S * nth, self.nz)
-        fsum = None if self.field is None else self._field_sum
+            lambda R: cols.keep(vmap(lambda w, x: precond(w, x, th))(
+                cols.gather(R), x_l)))
+        rhs = cols.keep(-dFdth1.transpose(1, 2).reshape(S * nth, -1))
+        fsum = self.zsum
         res = batched_cg(neg_hvp, rhs, tol=cg_tol, maxiter=cg_maxiter,
                          precond=M, reduce=fsum)
         Y = res.x.reshape(S, nth, self.nz)               # rows: A⁻¹ columns
-        H2 = -torch.einsum("szi,sjz->sij", dFdth, Y)
+        H2 = -torch.einsum("szi,sjz->sij", cols.keep(dFdth.transpose(1, 2)
+                                                     ).transpose(1, 2), Y)
         d = neg_hvp(res.x) - rhs
         if fsum is None:
             return H1 + H2, torch.linalg.vector_norm(d, dim=-1).reshape(S, nth)
+        resid = torch.sqrt(fsum(torch.sum(d * d, -1))).reshape(S, nth)
+        if self.gathered:
+            # H1 is whole; H2 contracts this rank's columns
+            return H1 + fsum(H2), resid
         # H1 and H2 are sums over z: one field sum of both, and of ‖d‖²
-        H = fsum(H1 + H2)
-        return H, torch.sqrt(fsum(torch.sum(d * d, -1))).reshape(S, nth)
+        return fsum(H1 + H2), resid
 
     @property
     def certifier(self):

@@ -23,8 +23,10 @@ problem (src/turing.jl:248-256), and a ``mesh=``
 (:class:`~muse_tpu_torch.parallel.SimsMesh`): each chunk's sims are split
 over its sims axis, each rank runs its block, and the per-sim results are
 gathered to every rank before anything is reduced, so every rank holds
-the same ``gs``, ``Hs``, J and H. Only global rank 0 writes
-``checkpoint_file`` and draws progress.
+the same ``gs``, ``Hs``, J and H. Its field axis takes either route of
+``solver/compiled.py``; the per-sim scores and Hs come out whole on every
+rank of a field group. Only global rank 0 writes ``checkpoint_file`` and
+draws progress.
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def _setup(result: MuseResult, problem: MuseProblem, theta0, seed, dtype,
     if result.theta_struct is None:
         result.theta_struct = spec.to_user(th)
     result.key = seed = _as_seed(seed, result)
-    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype,
+                                       mesh=mesh)
     check_mesh(problem, comp, mesh)
     return spec, th, seed, comp
 

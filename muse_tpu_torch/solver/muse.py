@@ -15,7 +15,10 @@ white split, the whites are drawn once per fit and every iteration runs
 device) splits the lanes of every chunk over its sims axis: each rank runs
 its block, the per-lane results are gathered to every rank, every rank
 runs the float64 host update, and global rank 0's stop decision and new θ
-are broadcast, so no rank leaves the loop alone. ``profile_dir`` traces
+are broadcast, so no rank leaves the loop alone. Its field axis splits
+every lane's latent, on the route ``CompiledProblem`` picks: the
+sharded-sum route for a problem built with that ``mesh=``, the gathered
+route for any other (``solver/compiled.py``). ``profile_dir`` traces
 the iteration loop with ``torch.profiler``.
 
 Left out: ``certify`` and the odd-lane padding (TPU compiler guards).
@@ -99,26 +102,29 @@ def _as_seed(seed, result) -> int:
 def check_mesh(problem: MuseProblem, comp: CompiledProblem, mesh) -> None:
     """Raise unless ``mesh`` can run ``problem``: the mesh's device is the
     problem's (no sharded work lands on the CPU when the card was asked
-    for), and a field axis is one the problem was built with."""
+    for), a problem built with a field axis is solved with that mesh, and
+    a ``compiled=`` problem was built for this mesh's route
+    (``CompiledProblem(mesh=)``)."""
     name = problem.name or type(problem).__name__
     field = problem.field_mesh
     if mesh is None:
         if field is not None:
             raise ValueError(f"{name} was built with a field axis: pass its "
                              "mesh= to the solver too")
+        if comp.gathered:
+            raise ValueError(f"the compiled {name} was built for a "
+                             "field-axis mesh: pass that mesh= too")
         return
     if comp.device != mesh.device:
         raise ValueError(f"{name} lives on {comp.device} but this rank's "
                          f"mesh device is {mesh.device}")
-    if mesh.field_axis is not None and field is not mesh:
-        raise ValueError(
-            f"{name} cannot shard its latent over the mesh's field axis: "
-            "only grf_spectral_problem and bandpower_problem can, built "
-            "with the same mesh= (a field axis for other problems is ROADMAP "
-            "Queue 1 item 15); use a sims-only mesh")
     if field is not None and field is not mesh:
         raise ValueError(f"{name} was built with another mesh than the "
                          "solver's")
+    if field is None and mesh.field_axis is not None \
+            and comp.cols.mesh is not mesh:
+        raise ValueError(f"the compiled {name} was built for another mesh "
+                         "than the solver's: build it with mesh=")
 
 
 def lane_blocks(mesh, bounds) -> list:
@@ -224,7 +230,8 @@ def muse_fit(
     th = _host_flat(spec, theta_start)
     result.theta_struct = spec.to_user(th)
 
-    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype)
+    comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype,
+                                       mesh=mesh)
     check_mesh(problem, comp, mesh)
     dev = comp.device
     th_t = _host(comp.transform(comp.theta(th)))
@@ -249,8 +256,8 @@ def muse_fit(
     if z0 is not None:
         z0_flat = comp.zspec.flatten(tree_map(
             lambda v: torch.as_tensor(v, dtype=dtype, device=dev), z0))
-        if z0_flat.numel() == problem.field_size:
-            z0_flat = z0_flat[problem.field_slice]     # this rank's rows
+        if z0_flat.numel() == comp.field_size:
+            z0_flat = z0_flat[comp.field_slice]     # this rank's share
     else:
         z0_flat = torch.zeros(comp.nz, dtype=dtype, device=dev)
 
@@ -308,8 +315,8 @@ def muse_fit(
                         Zc = Z_chunks[ci]
                         if mesh is not None:
                             Zc = mesh.gather_maps(
-                                Zc, a - s0, e0 - s0, problem.field_slice,
-                                problem.field_size)
+                                Zc, a - s0, e0 - s0, comp.field_slice,
+                                comp.field_size)
                         if ci == 0:
                             zhat_dat = Zc[0]
                         zhat_sims_parts.append(Zc[1 if ci == 0 else 0:])

@@ -165,3 +165,35 @@ def test_sampler_draw_order_and_crn():
 def test_field_model_self_consistency(problems):
     _, pt = problems
     assert check_self_consistency(pt, 0.5)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_matches_jax(arrays, use_pallas):
+    """``grf_field_problem(use_pallas=)`` both ways, in both packages: the
+    same batched log-likelihood and θ-score on the same inputs. With False
+    the port's quadform is the plain einsum and is never counted as a
+    kernel evaluation."""
+    x_obs, x, z = arrays["x_obs"], arrays["x"], arrays["z"]
+    pj = jgrf.grf_field_problem(n=N, sigma_noise=SIGMA,
+                                x_obs=jnp.asarray(x_obs),
+                                use_pallas=use_pallas)
+    jc = pj.grf_config
+    cfg = convert.grf_config_from_arrays(N, SIGMA, jc.gamma, jc.k0,
+                                         np.asarray(jc.k),
+                                         np.asarray(jc.herm_weight),
+                                         device="cpu")
+    pt = tgrf.grf_field_problem(cfg, x_obs=convert.x_obs(x_obs, device="cpu"),
+                                use_pallas=use_pallas)
+    th = -0.4
+    ll_j = jax.vmap(lambda a, b: pj.log_like(a, b, th))(jnp.asarray(x),
+                                                        jnp.asarray(z))
+    g_j = jax.vmap(lambda a, b: jax.grad(
+        lambda t: pj.log_like(a, b, t))(jnp.float32(th)))(jnp.asarray(x),
+                                                          jnp.asarray(z))
+    xt, zt, tht = torch.from_numpy(x), torch.from_numpy(z), torch.tensor(th)
+    before = SpectrumQuadform.evaluations
+    ll_t = vmap(lambda a, b: pt.log_like(a, b, tht))(xt, zt)
+    g_t = vmap(lambda a, b: grad(lambda t: pt.log_like(a, b, t))(tht))(xt, zt)
+    assert SpectrumQuadform.evaluations - before == (2 if use_pallas else 0)
+    np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=1e-5)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-4)

@@ -169,8 +169,10 @@ def test_what_is_left_out_raises_naming_the_roadmap():
         tg.grf_problem(n=8, fft_mode="matmul", device=CPU)
     field = SimsMesh.__new__(SimsMesh)       # a mesh with a field axis, as
     field.field_axis = "field"               # far as the check reads it
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tg.grf_problem(n=8, mesh=field, device=CPU)
+    # built for a field axis, its log-likelihood sees only a rank's rows:
+    # the generic L-BFGS MAPs need the gathered route (built without mesh=)
+    with pytest.raises(ValueError, match="gathered route"):
+        tg.grf_problem(n=8, mesh=field, solver="lbfgs", device=CPU)
     with pytest.raises(TypeError, match="SimsMesh"):
         tg.grf_problem(n=8, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="fft_mode"):

@@ -258,3 +258,59 @@ def test_band_reduction_route(cuda):
         if name == "sorted slices":
             assert rel <= 1e-5 and torch.equal(got, again)
     assert ms["sorted slices"] < min(ms["masked sums"], ms["index_add_"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_switch_counts_launches(cuda, use_pallas):
+    """``grf_field_problem(use_pallas=False)`` computes its quadform with
+    the plain version on the card and launches no kernel; True launches
+    one per batched score. Both give the same scores."""
+    from muse_tpu_torch.models import grf_field_problem
+    p, plain = (grf_field_problem(n=64, sigma_noise=0.1, device=cuda,
+                                  use_pallas=flag)
+                for flag in (use_pallas, False))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((6, 64, 64), generator=g, device=cuda)
+    z = torch.randn((6, 64, 64), generator=g, device=cuda)
+    th = torch.tensor(0.2, device=cuda)
+
+    def scores(prob):
+        return vmap(lambda a, b: grad(lambda t: prob.log_like(a, b, t))(th))(
+            x, z)
+
+    before = tp.spectrum_quadform_cuda.launches
+    got = scores(p)
+    assert tp.spectrum_quadform_cuda.launches - before == int(use_pallas)
+    torch.testing.assert_close(got, scores(plain), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cg_lane_sums_across_batch_widths(cuda):
+    """A lane's per-step sums in ``batched_cg`` (rz, pᵀAp and ‖r‖², as the
+    ``reduce`` hook sees them) at 26 lanes and at 51 agree to 1e-6 of the
+    lane's first value of each sum, the tolerance the port states in place
+    of the batch-width certifier: torch's per-lane reductions on a card
+    take their split from the shape, so they need not agree bit for bit."""
+    from muse_tpu_torch.ops.cg import batched_cg
+    g = torch.Generator(device=cuda).manual_seed(8)
+    L = 2 * 512 * 257
+    d = torch.rand((1, L), generator=g, device=cuda) * 1e3 + 1.0
+    b = torch.randn((51, L), generator=g, device=cuda)
+
+    def run(B):
+        seen = []
+
+        def record(t):
+            seen.append(t.clone())
+            return t
+        batched_cg(lambda V: d * V, b[:B], tol=1e-7, maxiter=30,
+                   reduce=record)
+        return seen
+
+    wide, narrow = run(51), run(26)
+    assert min(len(wide), len(narrow)) > 3
+    # records: ‖b‖², (rz, ‖r‖²) at the start, then per step pᵀAp, (rz, ‖r‖²)
+    for i, (w, n) in enumerate(zip(wide, narrow)):
+        scale = narrow[i if i < 3 else 1 if i % 2 else 2].abs()
+        assert ((w[..., :26] - n).abs() <= 1e-6 * scale).all(), i

@@ -10,9 +10,16 @@ tests hold against JAX. Tolerances:
     lanes with the same seeds; only the batch width of the CPU's FFTs and
     sums differs;
   * field axis: JAX's own (tests/test_mesh.py): θ̂ rtol 1e-4 / atol 1e-4,
-    J and H rtol 1e-3 — every sum over the latent is taken in two halves;
-  * the step against JAX's 8-device field mesh: tests/test_torch_spectral.py's
-    float32 tolerances.
+    J and H rtol 1e-3 — every sum over the latent is taken in two halves
+    (an FD H at 1e-3 of its largest entry); lensing within 0.1, JAX's
+    gate for a sharded lensing run, with every MAP converged. The field
+    spawn runs every problem: the packed spectral models and the pixel
+    ``grf_problem`` on the sharded-sum route, the funnel family, the PPL
+    (with a θ-bijector) and lensing on the gathered route;
+  * the steps against JAX's 8-device field mesh: tests/test_torch_spectral.py's
+    float32 tolerances for the spectral model; for the pixel model, whose
+    JAX transform there is the einsum DFT, the 1e-4 of
+    tests/test_mesh.py::test_matmul_dft_matches_jnp_fft.
 
 Every rank must end with the same bits (``result`` is the same on every
 rank). A spawn that does not finish within its deadline is killed and its
@@ -35,19 +42,21 @@ torch.set_num_threads(1)
 SIMS_RTOL = 1e-6
 
 
-def _oracle(runs) -> dict:
+@pytest.fixture(scope="module")
+def oracle():
+    """The unsharded port on every run of both spawns, each run once."""
     out = {}
-    for run in runs:
+    for run in dict.fromkeys(jobs.SIMS_RUNS + jobs.FIELD_RUNS):
         out.update(run(None))
     return out
 
 
 @pytest.fixture(scope="module")
-def sims(tmp_path_factory):
+def sims(tmp_path_factory, oracle):
     """(every rank's results on sims=4, the unsharded oracle, the job's
     directory)."""
     out = tmp_path_factory.mktemp("mesh_sims")
-    return jobs.spawn("sims", out), _oracle(jobs.SIMS_RUNS), out
+    return jobs.spawn("sims", out), oracle, out
 
 
 def _step_inputs(path):
@@ -87,14 +96,55 @@ def _step_inputs(path):
                                             "failed")}, np.asarray(pj.x)
 
 
+def _pixel_step_inputs(path):
+    """JAX's pixel ``grf_problem`` muse_step_white on an 8-device sims=4 ×
+    field=2 mesh (its transform there is the einsum DFT), from its own
+    whites; the inputs are saved for the port's ranks."""
+    import jax
+    import jax.numpy as jnp
+
+    import muse_tpu.models.grf as jgrf
+    from muse_tpu.parallel import make_sims_mesh as jmesh
+    from muse_tpu.solver.compiled import CompiledProblem as JCompiled
+    from muse_tpu.theta import ThetaSpec as JSpec
+
+    n, B, sigma = jobs.N, 8, 0.1
+    rng = np.random.default_rng(7)
+    cfg = jgrf.GrfConfig(n, sigma_noise=sigma)
+    z = np.asarray(cfg.apply_sqrtC(jnp.asarray(
+        rng.standard_normal((n, n)), jnp.float32), 0.0))
+    field = (z + sigma * rng.standard_normal((n, n))).astype(np.float32)
+    mesh = jmesh(sims=4, field=2)
+    pj = jgrf.grf_problem(n=n, sigma_noise=sigma, x_obs=jnp.asarray(field),
+                          mesh=mesh)
+    spec = JSpec.from_example(np.float32(0.5))
+    jc = JCompiled(pj, spec, spec.flatten(np.float32(0.5)))
+    keys = mesh.shard_sims(jax.random.split(jax.random.PRNGKey(5), B))
+    W = jc.sample_whites(keys)
+    Z_prev = (0.1 * rng.standard_normal((B, n * n))).astype(np.float32)
+    lanes = np.arange(B)
+    th = np.array([0.25], np.float32)
+    out = jc.muse_step_white(jnp.asarray(th), jnp.asarray(th), W,
+                             mesh.shard_sims(jnp.asarray(Z_prev)),
+                             mesh.shard_sims(jnp.asarray(lanes)),
+                             jnp.float32(1e-2))
+    np.savez(path, field=field, sigma=sigma, u=np.asarray(W[0]),
+             e=np.asarray(W[1]), Z_prev=Z_prev, lanes=lanes, theta=th)
+    return ({k: np.asarray(out[k]) for k in ("g", "Z", "converged",
+                                             "failed")},
+            np.asarray(pj.x), pj.grf_config.fft_mode)
+
+
 @pytest.fixture(scope="module")
-def field(tmp_path_factory):
+def field(tmp_path_factory, oracle):
     """(every rank's results on sims=2 × field=2, the unsharded oracle,
-    JAX's sharded step and its packed data)."""
+    JAX's sharded spectral step and its packed data, JAX's sharded pixel
+    step, its data and its transform mode)."""
     out = tmp_path_factory.mktemp("mesh_field")
     jax_step, jax_x = _step_inputs(out / "step_inputs.npz")
-    return (jobs.spawn("field", out), _oracle(jobs.FIELD_RUNS), jax_step,
-            jax_x)
+    pixel = _pixel_step_inputs(out / "pixel_step_inputs.npz")
+    return (jobs.spawn("field", out, timeout=jobs.FIELD_TIMEOUT_S), oracle,
+            jax_step, jax_x, pixel)
 
 
 def _close(got, want, rtol, atol=0.0):
@@ -125,7 +175,8 @@ def test_mesh_construction(sims):
 def test_every_rank_ends_with_the_same_bits(job, sims, field):
     ranks = (sims if job == "sims" else field)[0]
     for k, v in ranks[0].items():
-        if k in ("field_rows", "collectives"):
+        # a sims rank that holds no lanes of a chunk makes no gathers
+        if k in ("field_rows", "collectives") or k.startswith("counts_"):
             continue
         for r in ranks[1:]:
             np.testing.assert_array_equal(r[k], v, err_msg=k)
@@ -210,19 +261,25 @@ def test_bandpower_sims_axis_matches(sims, key):
 # the field axis
 # ------------------------------------------------------------------ #
 
-@pytest.mark.parametrize("model", ["spectral", "band"])
+@pytest.mark.parametrize("model", ["spectral", "band", "funnel", "pixel",
+                                   "vector", "ppl", "funnel_theta_11_lanes",
+                                   "funnel_theta_3_lanes",
+                                   "funnel_theta_max_batch"])
 def test_field_axis_theta_matches(field, model):
-    k = f"{model}_theta"
+    k = model if model.startswith("funnel_theta") else f"{model}_theta"
     _close(field[0][0][k], field[1][k], 1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("key", ["spectral_J", "spectral_H", "band_J",
-                                 "band_H_implicit"])
+                                 "band_H_implicit", "funnel_J",
+                                 "funnel_H_implicit", "pixel_J", "vector_J",
+                                 "ppl_J"])
 def test_field_axis_J_and_H_match(field, key):
     _close(field[0][0][key], field[1][key], 1e-3)
 
 
-@pytest.mark.parametrize("key", ["spectral_H_fd", "band_H"])
+@pytest.mark.parametrize("key", ["spectral_H_fd", "band_H", "funnel_H_fd",
+                                 "funnel_H_adaptive", "pixel_H", "ppl_H"])
 def test_field_axis_fd_H_matches(field, key):
     """FD H at a small step is a difference of O(n²) float32 sums: held at
     1e-3 of its largest entry, as tests/test_mesh.py holds bandpower's."""
@@ -246,16 +303,66 @@ def test_save_maps_and_z0_under_a_mesh(job, sims, field):
                * np.abs(Zw).max())
 
 
+def test_field_axis_lensing_runs_close(field):
+    """Lensing on the gathered route (VarPro with its field hooks): every
+    MAP converged, θ̂ within JAX's 0.1 of the unsharded run."""
+    r0, want = field[0][0], field[1]
+    assert r0["lensing_converged"].all()
+    gap = abs(float(r0["lensing_theta"][0]) - float(want["lensing_theta"][0]))
+    print(f"lensing field axis |θ̂ − θ̂ unsharded| = {gap:.6f}")
+    assert gap < 0.1
+
+
+@pytest.mark.parametrize("run, route", [
+    ("spectral_runs", "sum"), ("bandpower_runs", "sum"),
+    ("grf_pixel_runs", "pixel"), ("vector_theta_runs", "pixel"),
+    ("funnel_runs", "gathered"), ("ppl_runs", "gathered"),
+    ("lensing_runs", "gathered")])
+def test_field_axis_takes_each_problems_route(field, run, route):
+    """The packed spectral models sum partial sums and gather nothing; the
+    pixel grf_problem gathers at its solves' entry and exit and takes no
+    field maximum; every other problem takes the gathered route, whose
+    MAP solvers take sup-norms as field maxima."""
+    gathers, maxima, total = field[0][0][f"counts_{run}"]
+    assert total > 0
+    assert (gathers > 0) == (route != "sum")
+    assert (maxima > 0) == (route == "gathered")
+
+
 def test_field_axis_refused_where_it_cannot_shard(field):
+    """What stays refused on a field axis: the einsum DFT, which the port
+    leaves out; a problem built with one mesh and solved with another;
+    and the pixel grf_problem built for the axis with the generic L-BFGS,
+    whose log-likelihood needs the whole latent (built without mesh= it
+    takes the gathered route)."""
     r0 = field[0][0]
-    assert "funnel_problem" in str(r0["funnel_field_error"])
-    assert "Queue 1 item 14" in str(r0["pixel_field_error"])
+    assert "Left out on purpose" in str(r0["matmul_error"])
+    assert "another mesh" in str(r0["other_mesh_error"])
+    assert "gathered route" in str(r0["pixel_lbfgs_error"])
+
+
+def test_pixel_field_step_matches_jax(field):
+    """The port's field-axis pixel grf_problem muse_step_white (sims=2 ×
+    field=2: gathered FFTs at the solve's entry and exit, the PCG on each
+    rank's rows) against JAX's on an 8-device sims=4 × field=2 mesh, whose
+    transform is the einsum DFT, on JAX's whites."""
+    r0 = field[0][0]
+    want, jax_x, fft_mode = field[4]
+    assert fft_mode == "matmul"
+    np.testing.assert_allclose(r0["pixel_step_x"], jax_x, rtol=1e-4,
+                               atol=1e-4)
+    _close(r0["pixel_step_g"], want["g"], 1e-4, 1e-4)
+    _close(r0["pixel_step_Z"], want["Z"], 1e-4, 1e-4)
+    np.testing.assert_array_equal(r0["pixel_step_flags"][:, 0] > 0,
+                                  want["converged"])
+    np.testing.assert_array_equal(r0["pixel_step_flags"][:, 1] > 0,
+                                  want["failed"])
 
 
 def test_field_step_matches_jax(field):
     """The port's sharded muse_step_white (sims=2 × field=2, gathered)
     against JAX's on an 8-device sims=4 × field=2 mesh, on JAX's whites."""
-    ranks, _, want, jax_x = field
+    ranks, _, want, jax_x, _ = field
     r0 = ranks[0]
     np.testing.assert_allclose(r0["step_x"], jax_x, rtol=1e-6, atol=1e-6)
     _close(r0["step_g"], want["g"], 1e-4)

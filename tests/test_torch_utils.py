@@ -144,9 +144,9 @@ def test_problem_device_defaults_to_the_card():
 
 def test_paths_not_ported_yet_raise():
     """Adaptive FD get_H and a problem without custom_zhat (the generic
-    L-BFGS MAPs) run now; the paths still queued (the field axis of the
-    pixel grf_problem) or left out raise and say where they stand in the
-    ROADMAP."""
+    L-BFGS MAPs) run now; the paths left out raise and say where they
+    stand in the ROADMAP, and the pixel grf_problem built for a field axis
+    refuses the generic L-BFGS and names the route that runs it."""
     p = grf_field_problem(n=8, device="cpu")
     res = muse_tpu_torch.muse(p, 0.5, nsims=4, maxsteps=2)
     muse_tpu_torch.get_H(res, p, nsims=2, fd_order="adaptive")
@@ -156,8 +156,8 @@ def test_paths_not_ported_yet_raise():
     assert r.history[0]["map_iterations"].max() > 0
     field = SimsMesh.__new__(SimsMesh)       # a mesh with a field axis, as
     field.field_axis = "field"               # far as the check reads it
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grf_problem(n=8, mesh=field, device="cpu")
+    with pytest.raises(ValueError, match="gathered route"):
+        grf_problem(n=8, mesh=field, solver="lbfgs", device="cpu")
     with pytest.raises(TypeError, match="SimsMesh"):
         grf_spectral_problem(n=8, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

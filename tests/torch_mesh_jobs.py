@@ -142,9 +142,32 @@ def lensing_runs(mesh) -> dict:
             "lensing_converged": r.history[-1]["map_converged"]}
 
 
+PPL_D = 64
+
+
+def _ppl_scale_model():
+    """A PPL model with a positive hyper: θ = s runs in log space through
+    the Blockwise bijector, with the volume factor."""
+    s = mt.ppl.sample("s", mt.distributions.LogNormal(0.0, 1.0))
+    z = mt.ppl.sample("z", mt.distributions.Normal(0.0, s).expand((PPL_D,)))
+    mt.ppl.sample("x", mt.distributions.Normal(z, 1.0))
+
+
+def ppl_runs(mesh) -> dict:
+    """The PPL with a θ-bijector: fit, J and FD H (get_covariance)."""
+    g = torch.Generator().manual_seed(42)
+    x = 1.5 * torch.randn(PPL_D, generator=g) + torch.randn(PPL_D,
+                                                            generator=g)
+    r = mt.muse(_ppl_scale_model, {"s": 1.0}, observed={"x": x}, nsims=16,
+                theta_rtol=1e-3, maxsteps=6, get_covariance=True, seed=2,
+                mesh=mesh)
+    return {"ppl_theta": r.theta, "ppl_J": r.J, "ppl_H": r.H}
+
+
 SIMS_RUNS = (funnel_runs, grf_pixel_runs, spectral_runs, vector_theta_runs,
              bandpower_runs, maps_runs, lensing_runs)
-FIELD_RUNS = (spectral_runs, bandpower_runs, maps_runs)
+FIELD_RUNS = (spectral_runs, bandpower_runs, maps_runs, funnel_runs,
+              grf_pixel_runs, vector_theta_runs, lensing_runs, ppl_runs)
 
 
 # ------------------------------------------------------------------ #
@@ -174,27 +197,64 @@ def sims_job(out_dir: Path) -> dict:
     return out
 
 
+def _error(fn, kind) -> str:
+    """The message of the ``kind`` error that ``fn()`` raises ("" if it
+    raises none)."""
+    try:
+        fn()
+    except kind as e:
+        return str(e)
+    return ""
+
+
 def field_job(out_dir: Path) -> dict:
-    """Every run of ``FIELD_RUNS`` on ``sims=2 × field=2``; the problems
-    that cannot shard their latent refuse the field axis; the sharded
-    white-hoisted step on the whites in ``step_inputs.npz``."""
+    """Every run of ``FIELD_RUNS`` on ``sims=2 × field=2``, the two routes'
+    counts of gathers and field maxima, what stays refused, and the
+    sharded white-hoisted steps on the whites in ``step_inputs.npz`` and
+    ``pixel_step_inputs.npz``."""
     mesh = make_sims_mesh(sims=2, field=2, device_type=CPU)
     out = {}
     for run in FIELD_RUNS:
+        mesh.reset_counts()
         out.update(run(mesh))
-    p = funnel_problem(64, data_seed=42, device=CPU)
-    try:
-        mt.muse(p, 1.0, nsims=4, maxsteps=2, mesh=mesh)
-        out["funnel_field_error"] = ""
-    except ValueError as e:
-        out["funnel_field_error"] = str(e)
-    try:
-        grf_problem(n=N, device=CPU, mesh=mesh)
-        out["pixel_field_error"] = ""
-    except NotImplementedError as e:
-        out["pixel_field_error"] = str(e)
+        out[f"counts_{run.__name__}"] = np.array(
+            [mesh.gathers, mesh.max_reduces, mesh.collectives])
+    other = make_sims_mesh(sims=2, field=2, device_type=CPU)
+    built = grf_spectral_problem(n=N, sigma_noise=0.1, device=CPU,
+                                 mesh=other)
+    out["other_mesh_error"] = _error(lambda: mt.muse(
+        built, 0.5, nsims=4, maxsteps=2, mesh=mesh), ValueError)
+    out["matmul_error"] = _error(lambda: grf_problem(
+        n=N, device=CPU, mesh=mesh, fft_mode="matmul"), NotImplementedError)
+    out["pixel_lbfgs_error"] = _error(lambda: grf_problem(
+        n=N, device=CPU, mesh=mesh, solver="lbfgs"), ValueError)
     out.update(_sharded_step(mesh, out_dir / "step_inputs.npz"))
+    out.update(_sharded_pixel_step(mesh, out_dir / "pixel_step_inputs.npz"))
     return out
+
+
+def _sharded_pixel_step(mesh, inputs: Path) -> dict:
+    """The pixel ``grf_problem``'s muse_step_white on each rank's block of
+    lanes (whole whites, the warm starts' rows), gathered to every rank."""
+    d = np.load(inputs)
+    p = grf_problem(n=N, sigma_noise=float(d["sigma"]), x_obs=d["field"],
+                    device=CPU, mesh=mesh)
+    comp = CompiledProblem(p, ThetaSpec.from_example(0.5), np.array([0.5]))
+    B = d["u"].shape[0]
+    lo, hi = mesh.lane_block(B)
+    cols = p.field_slice
+    th = torch.from_numpy(d["theta"])
+    res = comp.muse_step_white(
+        th, th, (torch.from_numpy(d["u"][lo:hi]),
+                 torch.from_numpy(d["e"][lo:hi])),
+        torch.from_numpy(np.ascontiguousarray(d["Z_prev"][lo:hi, cols])),
+        torch.from_numpy(d["lanes"][lo:hi]), 1e-2)
+    flags = torch.stack([res["converged"], res["failed"]], 1)
+    return {"pixel_step_g": mesh.gather_sims(res["g"].numpy(), lo, B),
+            "pixel_step_Z": mesh.gather_maps(res["Z"], lo, B, cols,
+                                             p.field_size).numpy(),
+            "pixel_step_flags": mesh.gather_sims(flags.numpy(), lo, B),
+            "pixel_step_x": comp.x_obs.numpy()}
 
 
 def _sharded_step(mesh, inputs: Path) -> dict:
@@ -235,6 +295,9 @@ def hang_job(out_dir: Path) -> dict:
 
 
 JOBS = {"sims": sims_job, "field": field_job, "hang": hang_job}
+
+# the field spawn's deadline: its runs take ~1 min on 4 CPU ranks
+FIELD_TIMEOUT_S = 240.0
 
 
 # ------------------------------------------------------------------ #
