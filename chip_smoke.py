@@ -38,7 +38,12 @@ full width, each checked against an exact oracle. The paths:
     the 1024 pixel rows a rank, gathered FFTs at each solve's entry and
     exit), slice 3's user models and slice 4's 256² lensing case on the
     gathered route, each on ``sims=1 × field=2`` (two ranks sharing the
-    card over gloo), and ``grf_field_problem(use_pallas=False)``.
+    card over gloo), and ``grf_field_problem(use_pallas=False)``;
+  * slice 7, θ̂ ± σ calibrated across data realizations: the funnel, the
+    pixel GRF (amplitude, and amplitude with tilt), the 6-band bandpower
+    model, lensing and the north star, each fitted with J and H on 10-20
+    data realizations at full width, and the three demos of
+    ``muse_tpu_torch/examples``.
 
 The noise level and θ_rtol are the repo's 1024² north-star settings. At
 the default σ = 1 the field is so faint that the marginal MLE of a draw
@@ -71,15 +76,16 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      ``muse_step``, and the whole slice 1 fit + J + H;
   6. spectrum_quadform_and_grad vs plain at every lane count a main path
      gives it at n=1024 (``FUSED_LANES``: the fits' chunks of 128, 101 and
-     1 lanes; the MAP solves of every get_H, 51, 40, 20, 10 and 5 lanes;
-     under a sims axis of 2 the halves 64, 26 and 25) on the GRF operator
-     A = 1 + C/σ², at 101 and 5 lanes also on the bandpower model's 12-band
-     operator, on a field axis of 2's row slices of 512 × 1026 (both
-     halves: 128, 51 and 1 lanes on the GRF operator, 101 and 5 on the
-     12-band one, and for the field-axis pixel GRF 101, 10 and 20), and at
-     (3, 100) and (5, 33): quad
-     max relative error ≤ 1e-5 against the plain version in float64 (the
-     float32 plain's own rounding reaches 1.5e-5 at B=128), half_grad
+     1 lanes; the MAP solves of every get_H, 51, 40, 20, 10, 8 and 5
+     lanes; under a sims axis of 2 the halves 64, 26 and 25) on the GRF
+     operator A = 1 + C/σ², at 101 and 5 lanes also on the bandpower
+     model's 12-band operator and at 49 and 6 on its 6-band one (phase
+     16), on a field axis of 2's row slices of 512 × 1026 (both halves:
+     128, 51 and 1 lanes on the GRF operator, 101 and 5 on the 12-band
+     one, and for the field-axis pixel GRF 101, 10 and 20), and at
+     (3, 100) and (5, 33): quad max relative error ≤ 1e-5 against the
+     plain version in float64 (the float32 plain's own rounding reaches
+     1.5e-5 at B=128), half_grad
      equal to the plain ``z*w`` (``torch.equal``), a bitwise-equal rerun;
   7. the slice 2 pipeline, run twice in one process (cold, then warm):
      |θ̂ − MLE| < max(1e-3, 2σ_F/√512) and 0.9 < σ/σ_F < 1.1
@@ -93,7 +99,7 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      the median warm ``muse_step_white`` at 128 lanes and a torch.profiler
      breakdown of it (device-busy share, top kernels); the cold and warm
      fit, J and H walls; the peak device memory;
-  9. slice 3, run twice in one process (cold, then warm), then with
+  9. slice 3, run once in the process (cold), then with
      ``solver="cg"`` on the same data and seeds: per ``muse_step_white``
      the L-BFGS loop iterations (and ms each), the lanes' iterations
      (min, median, max), the line-search evaluations, the host syncs and
@@ -189,9 +195,10 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      trace file holding the step's kernels. Last, two ranks over NCCL on
      the one card, and what NCCL answers (printed).
 
- 15. the field axis for every problem on the one card. 15a (ROADMAP Queue
-     3 item 1): phase 7's implicit H of 51 sims with its CG's per-lane
-     sums (rz, pᵀAp, ‖r‖², through the ``reduce`` hook) recorded at 51
+ 15. the field axis for every problem on the one card. 15a (the
+     batch-width determinism of ROADMAP's fused PCG-step item): phase 7's
+     implicit H of 51 sims with its CG's per-lane sums (rz, pᵀAp, ‖r‖²,
+     through the ``reduce`` hook) recorded at 51
      lanes and at 26 (the first chunk of ``max_batch=26``): the first
      step at which they differ bit for bit, the largest difference
      relative to the lane's first value of each sum (<= 1e-6, the stated
@@ -220,16 +227,50 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      the gathers and field maxima apart, the kernels' launches and shapes
      (each held in phases 3 and 6).
 
-The wrappers record every input shape they launch at; after phase 14 the
+ 16. calibration across data realizations (tests/test_calibration.py's
+     configurations at full width, and the north star): realization i of a
+     study draws its data from ``data_seed`` base + i and its sims from
+     ``seed`` base + i (``DATA16``, ``SIMS16``), with the port's
+     generators, so these are other realizations of the JAX file's
+     configurations. 16a ``funnel_problem(512)``, R = 20, ``muse(θ₀ 0.3,
+     nsims=100, theta_rtol=3e-2, get_covariance=True)``; 16b
+     ``grf_problem(n=1024)`` (σ_noise 1), R = 14, fit θ₀ 0.3 with 100 sims,
+     J reused, implicit H of 8 sims; 16c ``grf_problem(n=1024,
+     sigma_noise=0.3, infer_tilt=True)``, R = 10, fit θ₀ (0.3, 0.1)
+     (``Hinv_update="sims"``), J and H as 16b; 16d
+     ``bandpower_problem(n=1024, nbands=6, sigma_noise=0.05)``, R = 10, fit
+     θ₀ 0.2 with 48 sims, theta_rtol 1e-2, J reused, implicit H of 6 sims;
+     16e ``lensing_problem(1024)``, R = 10, VarPro, fit θ₀ 0.3 with 16 sims,
+     Broyden, every MAP to 1e-3, implicit H of 8 sims; 16f phase 7's
+     pipeline, R = 20. The gates are tests/test_calibration.py's with its
+     numbers: for 16a, 16b, 16e and 16f at most 4, 3, 3 and 4 z-scores
+     outside ±1.96, √R·|mean z| < 3 and 0.45 < std(z) < 1.75; 16c at most 3
+     of the Mahalanobis m² above 5.99, 0.4 < mean m² < 5 and the component
+     z-scores' √(2R)·|mean| < 3.5; 16d at most 3 m² above 15.6 (a Hotelling
+     bound for 6 bands and 48 sims), 3 < mean m² < 10.5 and each band
+     within 0.8 Fisher σ of ``bandpower_mle``; 16e no failed MAP; 16f each
+     |θ̂ − MLE| < max(1e-3, 2σ_F/√512) (phase 7's gate). Printed per
+     study: every realization's θ̂ − θ_true, σ, steps and seconds; the z or
+     m², misses, mean and std; the study's seconds, peak device memory and
+     kernel launches (quadform = θ-score evaluations, fused = CG steps;
+     both in 16b, 16c and 16f, the fused kernel alone in 16d, neither in
+     16a and 16e). 16g runs the ``main`` of each of the port's demos on
+     the card: ``northstar_grf`` at its defaults (1024², 512 sims),
+     ``lensing_demo --n 1024 --nsims 64`` and ``muse_vs_hmc --dim 512
+     --nsims 100 --hmc-samples 500`` (its HMC contender cut from 2000
+     samples for time), each with its own asserts and its accuracy line,
+     and their walls. Every study runs before a failed gate fails the run.
+
+The wrappers record every input shape they launch at; after phase 16 the
 run fails if a kernel ran at a shape that phases 3 and 6 did not hold
 against the plain version, and phase 15 checks its ranks' shapes alike.
 No phase's failure is caught: any failure exits non-zero. The line before
 last is ``{"kernels": [...]}``: each kernel's ``launches`` is its count on
-slice 6's path, phase 15c's rank 0 (the counters set to 0 just before each
-path and read just after), and ``launches_by_path`` holds the count of
-every slice's path. The last line is ``{"ok": true, "device": …}``.
-Without a card, or without the package beside it, it exits non-zero and
-prints no result.
+slice 7's path, the calibration studies of phase 16 (the counters set to 0
+just before each study and read just after), and ``launches_by_path``
+holds the count of every slice's path. The last line is ``{"ok": true,
+"device": …}``. Without a card, or without the package beside it, it exits
+non-zero and prints no result.
 """
 
 import json
@@ -344,8 +385,8 @@ def profile_steps(step, card, label, nsteps=3, top=10, fft_share=False):
 
 def phase9(card, prob3, mle3, sig_F3):
     """Slice 3 at full width: the spectral GRF with solver="lbfgs", the
-    get_covariance flow with adaptive FD (muse_fit, get_J, get_H), cold and
-    warm, then the same fit with solver="cg" on the same data and seeds.
+    get_covariance flow with adaptive FD (muse_fit, get_J, get_H), cold,
+    then the same fit with solver="cg" on the same data and seeds.
     Returns (the quadform's launches in the cold L-BFGS run, the fused
     kernel's in the CG run)."""
     import numpy as np
@@ -402,74 +443,76 @@ def phase9(card, prob3, mle3, sig_F3):
     comp3.muse_step = keyed_step
     runs = []
     torch.cuda.reset_peak_memory_stats()
-    for run in ("cold", "warm"):
-        torch.cuda.synchronize()
-        gs.reset_counts()
-        batched_lbfgs.iterations = batched_lbfgs.ls_evaluations = 0
-        batched_lbfgs.host_syncs = 0
-        per_step.clear()
-        t0 = time.perf_counter()
-        res3 = muse_tpu_torch.MuseResult()
-        muse_tpu_torch.muse_fit(res3, prob3, 0.5, nsims=NSIMS3, max_batch=B,
-                                theta_rtol=1e-5, compiled=comp3, seed=1)
-        torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t0
-        muse_tpu_torch.get_J(res3, prob3, nsims=NSIMS3, max_batch=B,
-                             compiled=comp3, warn_reuse=False)
-        torch.cuda.synchronize()
-        t_j = time.perf_counter() - t0 - t_fit
-        fit_steps = len(per_step)
-        muse_tpu_torch.get_H(res3, prob3, nsims=H_NSIMS3, fd_order="adaptive",
-                             max_batch=B, compiled=comp3)
-        torch.cuda.synchronize()
-        t_h = time.perf_counter() - t0 - t_fit - t_j
-        rounds = res3.metadata["fd_adaptive"]
-        c = {"quad_launches": gs.spectrum_quadform_cuda.launches,
-             "quad_evaluations": gs.SpectrumQuadform.evaluations,
-             "muse_step_white_calls": fit_steps,
-             "fd_rounds": len(rounds),
-             "lbfgs_iterations": batched_lbfgs.iterations,
-             "lbfgs_ls_evaluations": batched_lbfgs.ls_evaluations,
-             "lbfgs_host_syncs": batched_lbfgs.host_syncs}
-        th, sig = float(res3.theta[0]), float(res3.sigma[0])
-        runs.append({"run": run, "fit_s": t_fit, "J_s": t_j, "H_s": t_h,
-                     "theta": th, "sigma": sig, **c})
-        bound = 3 * sig_F3 / np.sqrt(NSIMS3) + 0.02
-        phase(f"phase 9 {run} [{card}] fit: {res3}  steps {fit_steps}; MLE "
-              f"{mle3:.6f} σ_F {sig_F3:.6f}; |θ̂−MLE| {abs(th - mle3):.6f} "
-              f"(< {bound:.6f}); σ/σ_F {sig / sig_F3:.4f}; J "
-              f"{float(res3.J[0, 0]):.1f} H {float(res3.H[0, 0]):.1f}")
-        for i, st in enumerate(per_step):
-            phase(f"phase 9 {run} muse_step_white {i + 1}: {st['s']:.3f} s, "
-                  f"{st['loop_iterations']} L-BFGS iterations "
-                  f"({1e3 * st['s'] / max(st['loop_iterations'], 1):.2f} "
-                  f"ms each), lanes min/median/max "
-                  f"{st['lane_iterations']}, {st['ls_evaluations']} "
-                  f"line-search evaluations, {st['host_syncs']} host syncs, "
-                  f"{st['converged']}/{B} converged (the others' g_norm "
-                  f"min/median/max {st['g_norm_open']}), {st['failed']} "
-                  f"failed")
-        phase(f"phase 9 {run} adaptive FD: {len(rounds)} rounds, steps "
-              f"{[float(r['step'][0]) for r in rounds]}, trunc "
-              f"{[float(r['trunc'][0]) for r in rounds]}, roundoff "
-              f"{[float(r['roundoff'][0]) for r in rounds]}")
-        phase(f"phase 9 {run} counts: {c}; walls fit {t_fit:.3f} s, J "
-              f"{t_j:.4f} s, H {t_h:.3f} s")
-        if not (np.isfinite(th) and np.isfinite(sig)):
-            raise AssertionError("non-finite θ̂ or σ")
-        if not abs(th - mle3) < bound:
-            raise AssertionError(f"θ̂ {th} vs MLE {mle3}: off by more than "
-                                 f"{bound}")
-        if not 0.5 < sig / sig_F3 < 2:
-            raise AssertionError(f"σ {sig} vs σ_F {sig_F3}")
-        if any(h["map_failed"].any() for h in res3.history):
-            raise AssertionError("an L-BFGS lane of the fit failed")
-        # one launch per batched θ-score: each fit step, no new J sims
-        # (the fit's scores are reused), one FD stencil batch per round
-        if not (c["quad_launches"] > 0 and c["quad_launches"]
-                == c["quad_evaluations"] == fit_steps + len(rounds)):
-            raise AssertionError(f"quadform launches do not match the "
-                                 f"θ-score evaluations: {c}")
+    # one cold run and no warm rerun: the run's time limit leaves room for
+    # the calibration studies of phase 16
+    run = "cold"
+    torch.cuda.synchronize()
+    gs.reset_counts()
+    batched_lbfgs.iterations = batched_lbfgs.ls_evaluations = 0
+    batched_lbfgs.host_syncs = 0
+    per_step.clear()
+    t0 = time.perf_counter()
+    res3 = muse_tpu_torch.MuseResult()
+    muse_tpu_torch.muse_fit(res3, prob3, 0.5, nsims=NSIMS3, max_batch=B,
+                            theta_rtol=1e-5, compiled=comp3, seed=1)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    muse_tpu_torch.get_J(res3, prob3, nsims=NSIMS3, max_batch=B,
+                         compiled=comp3, warn_reuse=False)
+    torch.cuda.synchronize()
+    t_j = time.perf_counter() - t0 - t_fit
+    fit_steps = len(per_step)
+    muse_tpu_torch.get_H(res3, prob3, nsims=H_NSIMS3, fd_order="adaptive",
+                         max_batch=B, compiled=comp3)
+    torch.cuda.synchronize()
+    t_h = time.perf_counter() - t0 - t_fit - t_j
+    rounds = res3.metadata["fd_adaptive"]
+    c = {"quad_launches": gs.spectrum_quadform_cuda.launches,
+         "quad_evaluations": gs.SpectrumQuadform.evaluations,
+         "muse_step_white_calls": fit_steps,
+         "fd_rounds": len(rounds),
+         "lbfgs_iterations": batched_lbfgs.iterations,
+         "lbfgs_ls_evaluations": batched_lbfgs.ls_evaluations,
+         "lbfgs_host_syncs": batched_lbfgs.host_syncs}
+    th, sig = float(res3.theta[0]), float(res3.sigma[0])
+    runs.append({"run": run, "fit_s": t_fit, "J_s": t_j, "H_s": t_h,
+                 "theta": th, "sigma": sig, **c})
+    bound = 3 * sig_F3 / np.sqrt(NSIMS3) + 0.02
+    phase(f"phase 9 {run} [{card}] fit: {res3}  steps {fit_steps}; MLE "
+          f"{mle3:.6f} σ_F {sig_F3:.6f}; |θ̂−MLE| {abs(th - mle3):.6f} "
+          f"(< {bound:.6f}); σ/σ_F {sig / sig_F3:.4f}; J "
+          f"{float(res3.J[0, 0]):.1f} H {float(res3.H[0, 0]):.1f}")
+    for i, st in enumerate(per_step):
+        phase(f"phase 9 {run} muse_step_white {i + 1}: {st['s']:.3f} s, "
+              f"{st['loop_iterations']} L-BFGS iterations "
+              f"({1e3 * st['s'] / max(st['loop_iterations'], 1):.2f} "
+              f"ms each), lanes min/median/max "
+              f"{st['lane_iterations']}, {st['ls_evaluations']} "
+              f"line-search evaluations, {st['host_syncs']} host syncs, "
+              f"{st['converged']}/{B} converged (the others' g_norm "
+              f"min/median/max {st['g_norm_open']}), {st['failed']} "
+              f"failed")
+    phase(f"phase 9 {run} adaptive FD: {len(rounds)} rounds, steps "
+          f"{[float(r['step'][0]) for r in rounds]}, trunc "
+          f"{[float(r['trunc'][0]) for r in rounds]}, roundoff "
+          f"{[float(r['roundoff'][0]) for r in rounds]}")
+    phase(f"phase 9 {run} counts: {c}; walls fit {t_fit:.3f} s, J "
+          f"{t_j:.4f} s, H {t_h:.3f} s")
+    if not (np.isfinite(th) and np.isfinite(sig)):
+        raise AssertionError("non-finite θ̂ or σ")
+    if not abs(th - mle3) < bound:
+        raise AssertionError(f"θ̂ {th} vs MLE {mle3}: off by more than "
+                             f"{bound}")
+    if not 0.5 < sig / sig_F3 < 2:
+        raise AssertionError(f"σ {sig} vs σ_F {sig_F3}")
+    if any(h["map_failed"].any() for h in res3.history):
+        raise AssertionError("an L-BFGS lane of the fit failed")
+    # one launch per batched θ-score: each fit step, no new J sims
+    # (the fit's scores are reused), one FD stencil batch per round
+    if not (c["quad_launches"] > 0 and c["quad_launches"]
+            == c["quad_evaluations"] == fit_steps + len(rounds)):
+        raise AssertionError(f"quadform launches do not match the "
+                             f"θ-score evaluations: {c}")
     peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the same pipeline with the PCG MAPs, on the same data and seeds
@@ -528,9 +571,8 @@ def phase9(card, prob3, mle3, sig_F3):
                   "phase 9", nsteps=1)
     del W, Z_a
     phase(f"phase 9 [{card}] slice 3 walls: cold fit {runs[0]['fit_s']:.3f} "
-          f"J {runs[0]['J_s']:.4f} H {runs[0]['H_s']:.3f} s; warm fit "
-          f"{runs[1]['fit_s']:.3f} J {runs[1]['J_s']:.4f} H "
-          f"{runs[1]['H_s']:.3f} s; peak device memory {peak3:.2f} GiB")
+          f"J {runs[0]['J_s']:.4f} H {runs[0]['H_s']:.3f} s; peak device "
+          f"memory {peak3:.2f} GiB")
     return runs[0]["quad_launches"], fused_cg
 
 
@@ -675,11 +717,20 @@ def _halves(c):
 # the sharded north star's sims halves: its fit chunks and its H's MAPs
 MESH_LANES2 = sorted(set().union(*map(_halves, FIT_CHUNKS2)))
 MESH_H_LANES2 = sorted(_halves(H_NSIMS2))
+# Slice 7, the calibration studies (phase 16): the pixel GRF's fits in one
+# chunk of 101 lanes and its implicit H's fiducial MAPs of 8 sims; the
+# 6-band bandpower model's fit of 48 sims (49 lanes) and H of 6 sims; the
+# north star's as slice 2's
+H_NSIMS16_GRF, NSIMS16_BAND, H_NSIMS16_BAND, NBANDS16 = 8, 48, 6, 6
 QUAD_LANES = sorted({1, 17, 101, *FIT_CHUNKS2, NSIMS3 + 1, H_LANES3,
                      NSIMS4_GRF + 1, H_LANES4_PIXEL[1], *MESH_LANES2})
 FUSED_LANES = sorted({1, 17, H_NSIMS2, *FIT_CHUNKS2, NSIMS3 + 1, H_NSIMS3,
                       H_LANES3, NSIMS4_GRF + 1, H_CHUNK4_BAND,
-                      *H_LANES4_PIXEL, *MESH_LANES2, *MESH_H_LANES2})
+                      *H_LANES4_PIXEL, *MESH_LANES2, *MESH_H_LANES2,
+                      H_NSIMS16_GRF})
+# the bandpower operators' lane counts: slice 4's 12 bands, slice 7's 6
+FUSED_BAND = ((NBANDS4, (NSIMS4_GRF + 1, H_CHUNK4_BAND)),
+              (NBANDS16, (NSIMS16_BAND + 1, H_NSIMS16_BAND)))
 # and the lane counts at which the field axis launches on MESH_ROWS rows:
 # the north star's fit chunks and H's MAPs; the bandpower fit's chunk and
 # its H's chunks (the 12-band operator)
@@ -1887,7 +1938,8 @@ def _field_rank(rank, port, out_dir):
 
 
 def phase15a(card, prob2, comp2, theta2):
-    """Queue 3 item 1: the same 51 sims of phase 7's implicit H through
+    """The batch-width determinism of the CG's sums (ROADMAP, the fused
+    PCG-step item): the same 51 sims of phase 7's implicit H through
     ``batched_cg`` at 51 lanes and at 26 (the first chunk of
     ``max_batch=26``): each step's per-lane rz, pᵀAp and ‖r‖² (as the
     ``reduce`` hook sees them) compared bit by bit, and the CG's inputs —
@@ -1956,7 +2008,7 @@ def phase15a(card, prob2, comp2, theta2):
             torch.linalg.vector_norm(P, dim=-1))}
     equal = {name: bool(torch.equal(a, b)) for name, (a, b) in probes.items()}
     cause = next((name for name, same in equal.items() if not same), None)
-    phase(f"phase 15a [{card}] implicit H's CG (Queue 3 item 1): 51 sims "
+    phase(f"phase 15a [{card}] implicit H's CG across batch widths: 51 sims "
           f"at {b_w.shape[0]} lanes vs {k}: {len(wide)} and {len(narrow)} "
           f"reductions; first step whose per-lane sums differ: "
           f"{first or 'none (bitwise equal)'}; max difference relative to "
@@ -2172,6 +2224,340 @@ def phase15(card, dev, prob4, pixel13, users10, lensing12, held):
         gate(ranks[0][key]["theta"] == ranks[1][key]["theta"],
              f"{key}: the ranks ended apart")
     return ranks[0]["15c"]
+
+
+# ------------------------------------------------------------------ #
+# phase 16: θ̂ ± σ calibrated across data realizations (slice 7)
+# ------------------------------------------------------------------ #
+
+# the studies of tests/test_calibration.py's configurations and of the
+# north star at full width: R16 realizations each, realization i drawing
+# its data from data_seed DATA16 + i and its sims from seed SIMS16 + i.
+# The seeds were fixed before the first run and are not tuned to a gate.
+# The port's generators are not JAX's threefry, so these are other
+# realizations of the same configurations than the JAX file's.
+R16 = {"a": 20, "b": 14, "c": 10, "d": 10, "e": 10, "f": 20}
+DATA16 = {"a": 1000, "b": 2000, "c": 4000, "d": 6000, "e": 3000, "f": 5000}
+SIMS16 = {"a": 700, "b": 800, "c": 1100, "d": 1300, "e": 900, "f": 500}
+SIZE16 = {"a": 512, "b": 1024, "c": 1024, "d": 1024, "e": 1024, "f": 1024}
+# the fits' sims (the north star's are phase 7's), the implicit H's sims,
+# the bandpower model's bands; the lensing MAPs are solved to 1e-3 (at
+# 1024² the demo's 3e-3 ends most solves at their start, and the default
+# 1e-2 would test the MAP tolerance, not the port)
+NSIMS16 = {"a": 100, "b": 100, "c": 100, "d": NSIMS16_BAND, "e": 16,
+           "f": NSIMS2}
+H_NSIMS16 = {"b": H_NSIMS16_GRF, "c": H_NSIMS16_GRF, "d": H_NSIMS16_BAND,
+             "e": 8, "f": H_NSIMS2}
+ATOL16_LENS = 1e-3
+
+
+def calibration_failures(zs, max_miss=4):
+    """tests/test_calibration.py:30-42 with its numbers: at most
+    ``max_miss`` z outside ±1.96, √R·|mean z| < 3, 0.45 < std(z) < 1.75.
+    Returns what failed (empty when every gate holds)."""
+    import numpy as np
+    zs = np.asarray(zs)
+    R = len(zs)
+    out = []
+    misses = int((np.abs(zs) > 1.96).sum())
+    if misses > max_miss:
+        out.append(f"coverage failure: {misses}/{R} realizations outside "
+                   f"±1.96σ (zs={np.round(zs, 2)})")
+    if not abs(zs.mean()) * np.sqrt(R) < 3.0:
+        out.append(f"bias: mean z = {zs.mean():.3f} over {R} realizations "
+                   f"(√R·mean = {zs.mean() * np.sqrt(R):.2f})")
+    if not 0.45 < zs.std(ddof=1) < 1.75:
+        out.append(f"σθ miscalibrated: std(z) = {zs.std(ddof=1):.3f}")
+    return out
+
+
+def realization16(key, i, dev, size, sync):
+    """Realization ``i`` of study 16``key`` at ``size`` (the funnel's
+    dimension, else the field's n) through the port's entry points; returns
+    θ̂ − θ_true, Σ, σ, the count of failed MAPs, the pipeline's seconds
+    (problem, fit, J and H; ``sync`` drains the device) and, per study,
+    its oracle."""
+    import numpy as np
+    import torch
+
+    import muse_tpu_torch as mt
+    from muse_tpu_torch.models import (bandpower_mle, bandpower_problem,
+                                       funnel_problem, grf_marginal_mle,
+                                       grf_problem, grf_spectral_problem,
+                                       lensing_problem)
+    from muse_tpu_torch.solver import CompiledProblem
+    from muse_tpu_torch.theta import ThetaSpec
+
+    seed, data_seed = SIMS16[key] + i, DATA16[key] + i
+    nsims, out = NSIMS16[key], {}
+    res = mt.MuseResult()
+    sync()
+    t0 = time.perf_counter()
+    if key == "a":
+        prob = funnel_problem(size, theta_true=0.0, data_seed=data_seed,
+                              device=dev)
+        res = mt.muse(prob, 0.3, nsims=nsims, theta_rtol=3e-2,
+                      get_covariance=True, seed=seed)
+    elif key == "f":
+        prob = grf_spectral_problem(n=size, sigma_noise=0.01, solver="cg",
+                                    data_seed=data_seed, device=dev)
+        comp = CompiledProblem(prob, ThetaSpec.from_example(0.5),
+                               np.array([0.5]))
+        mt.muse_fit(res, prob, 0.5, nsims=nsims, max_batch=MAX_BATCH2,
+                    theta_rtol=1e-5, alpha=1.0, Hinv_update="sims",
+                    compiled=comp, seed=seed)
+        mt.get_J(res, prob, nsims=nsims, max_batch=MAX_BATCH2,
+                 compiled=comp, warn_reuse=False)
+        mt.get_H(res, prob, nsims=H_NSIMS16[key], implicit_diff=True,
+                 implicit_diff_precond=prob.suggested_h_precond,
+                 max_batch=MAX_BATCH2, compiled=comp)
+    else:
+        atol, fit, h = 1e-2, {}, {}
+        if key == "b":
+            prob = grf_problem(n=size, theta_true=0.0, data_seed=data_seed,
+                               device=dev)
+            theta0, fit["theta_rtol"] = 0.3, 3e-2
+        elif key == "c":
+            prob = grf_problem(n=size, sigma_noise=0.3, infer_tilt=True,
+                               theta_true=torch.zeros(2, device=dev),
+                               data_seed=data_seed, device=dev)
+            theta0 = np.array([0.3, 0.1])
+            fit.update(theta_rtol=3e-2, Hinv_update="sims")
+        elif key == "d":
+            prob = bandpower_problem(n=size, nbands=NBANDS16,
+                                     sigma_noise=0.05, data_seed=data_seed,
+                                     device=dev)
+            theta0, fit["theta_rtol"] = np.zeros(NBANDS16) + 0.2, 1e-2
+        else:
+            prob = lensing_problem(size, theta_true=0.0,
+                                   data_seed=data_seed, device=dev)
+            atol = ATOL16_LENS
+            theta0, h["implicit_fit_atol"] = 0.3, atol
+            fit.update(theta_rtol=3e-2, Hinv_update="broyden")
+        mt.muse_fit(res, prob, theta0, nsims=nsims, grad_z_atol=atol,
+                    seed=seed, **fit)
+        mt.get_J(res, prob, nsims=nsims, grad_z_atol=atol, seed=seed,
+                 warn_reuse=False)
+        mt.get_H(res, prob, nsims=H_NSIMS16[key], implicit_diff=True,
+                 implicit_diff_precond=prob.suggested_h_precond, seed=seed,
+                 **h)
+    sync()
+    out["s"] = time.perf_counter() - t0
+    if key == "f":
+        out["mle"], out["sig_F"] = grf_marginal_mle(prob.x_real,
+                                                    prob.grf_config)
+    if key == "d":
+        # at 1024² this configuration's bands 2-6 hold C ≪ σ² (Fisher σ
+        # 0.5-8 in log-amplitude): a band's exact MLE may run to the
+        # θ → −∞ boundary, where bandpower_mle raises (muse_tpu's does
+        # alike on the same data) and there is no MLE to pin θ̂ to
+        try:
+            out["mle"], out["Sigma_F"] = bandpower_mle(
+                prob.x_real, size, NBANDS16, sigma_noise=0.05)
+        except RuntimeError as e:
+            if "did not converge" not in str(e):
+                raise
+            out["mle_error"] = str(e)
+    out.update(d=np.asarray(res.theta, np.float64),
+               Sigma=np.atleast_2d(np.asarray(res.Sigma, np.float64)),
+               sigma=np.asarray(res.sigma, np.float64),
+               steps=len(res.history),
+               failed=int(sum(np.asarray(h["map_failed"]).sum()
+                              for h in res.history)))
+    return out
+
+
+def study16(key, dev, size, card, sync):
+    """Study 16``key``: its R16 realizations, their statistics and gates.
+    Returns (the study's numbers, the gates that failed)."""
+    import numpy as np
+
+    R, runs, secs = R16[key], [], []
+    for i in range(R):
+        runs.append(realization16(key, i, dev, size, sync))
+        r = runs[-1]
+        secs.append(r["s"])
+        phase(f"phase 16{key} {i + 1}/{R} [{card}] data_seed "
+              f"{DATA16[key] + i} seed {SIMS16[key] + i}: θ̂ − θ_true "
+              f"{np.round(r['d'], 5).tolist()} σ "
+              f"{np.round(r['sigma'], 5).tolist()} steps {r['steps']} failed "
+              f"MAPs {r['failed']} {secs[-1]:.3f} s")
+    d = np.array([r["d"] for r in runs])
+    S = np.array([r["Sigma"] for r in runs])
+    sig = np.array([r["sigma"] for r in runs])
+    out = {"R": R, "s": secs, "study_s": sum(secs)}
+    fails = []
+    if key in "abef":
+        zs = d[:, 0] / sig[:, 0]
+        max_miss = 4 if key in "af" else 3
+        fails += calibration_failures(zs, max_miss)
+        out.update(z=zs, misses=int((np.abs(zs) > 1.96).sum()),
+                   max_miss=max_miss, mean=zs.mean(), std=zs.std(ddof=1))
+        stats = (f"z {np.round(zs, 3).tolist()}; misses {out['misses']} "
+                 f"(≤ {max_miss}); mean {zs.mean():+.4f} (√R·|mean| "
+                 f"{abs(zs.mean()) * np.sqrt(R):.3f} < 3); std(z) "
+                 f"{zs.std(ddof=1):.4f} (0.45-1.75)")
+    else:
+        m2 = np.array([di @ np.linalg.solve(Si, di) for di, Si in zip(d, S)])
+        q95, lo, hi = {"c": (5.99, 0.4, 5.0), "d": (15.6, 3.0, 10.5)}[key]
+        misses = int((m2 > q95).sum())
+        if misses > 3:
+            fails.append(f"{misses}/{R} m² above {q95}: {np.round(m2, 2)}")
+        if not lo < m2.mean() < hi:
+            fails.append(f"mean m² {m2.mean():.3f} outside ({lo}, {hi})")
+        out.update(m2=m2, misses=misses, mean=m2.mean())
+        stats = (f"m² {np.round(m2, 3).tolist()}; above {q95}: {misses} "
+                 f"(≤ 3); mean m² {m2.mean():.4f} ({lo}-{hi})")
+        if key == "c":
+            cz = (d / sig).ravel()
+            t = abs(cz.mean()) * np.sqrt(len(cz))
+            if not t < 3.5:
+                fails.append(f"component bias: √(2R)·|mean z| {t:.3f}")
+            out["component_z_mean"] = cz.mean()
+            stats += (f"; component z mean {cz.mean():+.4f} (√(2R)·|mean| "
+                      f"{t:.3f} < 3.5), std {cz.std(ddof=1):.4f}")
+        else:
+            pinned = [i for i, r in enumerate(runs) if "mle" in r]
+            dev_f = np.array([np.abs(runs[i]["d"] - runs[i]["mle"])
+                              / np.sqrt(np.diag(runs[i]["Sigma_F"]))
+                              for i in pinned]).reshape(-1, NBANDS16)
+            worst = dev_f.max() if pinned else float("nan")
+            if pinned and not worst < 0.8:
+                fails.append(f"a band off bandpower_mle by {worst:.3f} "
+                             f"Fisher σ (realization "
+                             f"{pinned[int(dev_f.max(1).argmax())]})")
+            out.update(mle_dev_max=worst, mle_pinned=pinned)
+            stats += (f"; bandpower_mle converged on realizations {pinned} "
+                      f"(the others' MLE runs to θ → −∞ in a band), there "
+                      f"max |θ̂_b − MLE_b|/σ_F,b {worst:.4f} (< 0.8), "
+                      f"per realization "
+                      f"{np.round(dev_f.max(1), 4).tolist()}")
+    if key == "e":
+        failed = sum(r["failed"] for r in runs)
+        if failed:
+            fails.append(f"{failed} failed MAPs")
+        stats += f"; failed MAPs {failed}"
+    if key == "f":
+        gap = np.array([abs(r["d"][0] - r["mle"]) for r in runs])
+        tgt = np.array([max(1e-3, 2.0 * r["sig_F"] / np.sqrt(NSIMS2))
+                        for r in runs])
+        ratio = sig[:, 0] / np.array([r["sig_F"] for r in runs])
+        if not (gap < tgt).all():
+            fails.append(f"|θ̂ − MLE| {np.round(gap, 6)} vs "
+                         f"{np.round(tgt, 6)}")
+        out["mle_gap_max"] = gap.max()
+        stats += (f"; max |θ̂ − MLE| {gap.max():.3e} (each below max(1e-3, "
+                  f"2σ_F/√{NSIMS2}): {bool((gap < tgt).all())}), σ/σ_F "
+                  f"{np.round(ratio, 4).tolist()}")
+    phase(f"phase 16{key} [{card}] R {R}: {stats}; seconds per realization "
+          f"{[round(s, 3) for s in secs]}, study {sum(secs):.2f} s")
+    return out, fails
+
+
+def phase16(card, dev):
+    """θ̂ ± σ calibrated across data realizations at full width (16a-16f),
+    then the three demos of muse_tpu_torch/examples (16g). Returns each
+    study's numbers and kernel launches; raises after the last study if a
+    gate failed."""
+    import torch
+
+    from muse_tpu_torch.examples import (lensing_demo, muse_vs_hmc,
+                                         northstar_grf)
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+
+    def sync():
+        torch.cuda.synchronize()
+
+    titles = {
+        "a": "funnel_problem(512, θ_true = 0): muse(θ₀ 0.3, nsims 100, "
+             "theta_rtol 3e-2, get_covariance)",
+        "b": "grf_problem(n=1024, σ_noise 1, θ_true = 0): fit θ₀ 0.3, nsims "
+             "100, theta_rtol 3e-2; reused J; implicit H of 8 sims",
+        "c": "grf_problem(n=1024, σ_noise 0.3, infer_tilt, θ_true = (0, 0)): "
+             "fit θ₀ (0.3, 0.1), nsims 100, Hinv sims; reused J; implicit H "
+             "of 8 sims",
+        "d": "bandpower_problem(n=1024, 6 bands, σ_noise 0.05): fit θ₀ 0.2, "
+             "nsims 48, theta_rtol 1e-2; reused J; implicit H of 6 sims",
+        "e": "lensing_problem(1024, θ_true = 0), VarPro: fit θ₀ 0.3, nsims "
+             "16, Broyden, theta_rtol 3e-2, MAPs to 1e-3; reused J; implicit "
+             "H of 8 sims (fiducial MAPs to 1e-3)",
+        "f": "grf_spectral_problem(n=1024, σ_noise 0.01, cg): phase 7's fit "
+             "(512 sims, max_batch 128, alpha 1, Hinv sims, theta_rtol "
+             "1e-5), reused J, implicit H of 51 sims"}
+    phase(f"phase 16 [{card}] calibration across data realizations: "
+          "realization i draws its data from data_seed base + i and its sims "
+          "from seed base + i with the port's generators (not JAX's "
+          "threefry), so these are other realizations of "
+          "tests/test_calibration.py's configurations")
+    studies, fails = {}, []
+    for key in "abcdef":
+        phase(f"phase 16{key} [{card}] {titles[key]}")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held_GiB = torch.cuda.memory_allocated() / 2 ** 30
+        gs.reset_counts()
+        batched_cg.curvature_steps = 0
+        out, f = study16(key, dev, SIZE16[key], card, sync)
+        out.update(quad_launches=gs.spectrum_quadform_cuda.launches,
+                   quad_evaluations=gs.SpectrumQuadform.evaluations,
+                   fused_launches=gs.spectrum_quadform_and_grad_cuda.launches,
+                   cg_steps=batched_cg.curvature_steps,
+                   peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   held_GiB=held_GiB)
+        # the θ-scores of the GRF studies go through the quadform, one
+        # launch per batched evaluation; every PCG step of a GRF or
+        # bandpower solve through the fused kernel, one launch per CG step;
+        # the funnel and lensing launch neither
+        quad = key in "bcf"
+        fused = key in "bcdf"
+        if not (out["quad_launches"] == out["quad_evaluations"]
+                and (out["quad_launches"] > 0) == quad
+                and (out["fused_launches"] > 0) == fused
+                and (out["fused_launches"] == out["cg_steps"]
+                     or not fused)):
+            f.append(f"kernel launches: quadform {out['quad_launches']} for "
+                     f"{out['quad_evaluations']} evaluations, fused "
+                     f"{out['fused_launches']}")
+        phase(f"phase 16{key} [{card}] launches: quadform "
+              f"{out['quad_launches']} (= θ-score evaluations "
+              f"{out['quad_evaluations']}), fused {out['fused_launches']} "
+              f"(CG steps {out['cg_steps']}); peak device memory "
+              f"{out['peak_GiB']:.2f} GiB, of which {out['held_GiB']:.2f} "
+              f"GiB held by earlier phases")
+        for msg in f:
+            phase(f"phase 16{key} GATE FAILED: {msg}")
+        fails += [f"16{key}: {msg}" for msg in f]
+        studies[key] = out
+
+    # 16g: the demos' main on the card. muse_vs_hmc's HMC contender is cut
+    # from 2000 samples to 500 to fit the run's time; its MUSE side runs at
+    # full width (512 dims, 100 sims)
+    demos = {}
+    for name, mod, argv in (
+            ("northstar_grf", northstar_grf, []),
+            ("lensing_demo", lensing_demo, ["--n", "1024", "--nsims", "64"]),
+            ("muse_vs_hmc", muse_vs_hmc,
+             ["--dim", "512", "--nsims", "100", "--hmc-samples", "500"])):
+        phase(f"phase 16g [{card}] python -m muse_tpu_torch.examples.{name} "
+              f"{' '.join(argv)}"
+              + (" (HMC cut to 500 samples for time; MUSE at full width)"
+                 if name == "muse_vs_hmc" else ""))
+        sync()
+        gs.reset_counts()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        sync()
+        out.update(s=time.perf_counter() - t0,
+                   quad_launches=gs.spectrum_quadform_cuda.launches,
+                   fused_launches=gs.spectrum_quadform_and_grad_cuda.launches)
+        phase(f"phase 16g [{card}] {name}: {out['s']:.2f} s; quadform "
+              f"launches {out['quad_launches']}, fused "
+              f"{out['fused_launches']}")
+        demos[name] = out
+    if fails:
+        raise AssertionError("phase 16: " + "; ".join(fails))
+    return studies, demos
 
 
 def main():
@@ -2440,7 +2826,7 @@ def main():
     # the row slices of a field axis of 2 (both halves)
     abs_err_fused = 0.0
     shapes = [(B, 1024, 0, None) for B in FUSED_LANES] + [
-        (B, 1024, NBANDS4, None) for B in (NSIMS4_GRF + 1, H_CHUNK4_BAND)]
+        (B, 1024, bands, None) for bands, lanes in FUSED_BAND for B in lanes]
     for rows in (slice(0, MESH_ROWS), slice(MESH_ROWS, None)):
         shapes += [(B, 1024, 0, rows) for B in FUSED_SLICED]
         shapes += [(B, 1024, NBANDS4, rows) for B in FUSED_SLICED_BAND]
@@ -2624,6 +3010,8 @@ def main():
     field15 = phase15(card, dev, prob, slice4["pixel"], users10, lensing12,
                       held)
     phase(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    cal16, demos16 = phase16(card, dev)
+    phase(f"phases 1-16 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -2639,11 +3027,18 @@ def main():
             raise AssertionError(f"{name} ran at shapes that no phase held "
                                  f"against its plain version: {missed}")
 
+    # slice 7's path: the calibration studies 16a-16f, each with the
+    # counters set to 0 just before it and read just after
+    quad16 = {f"slice7_calibration_16{k}": cal16[k]["quad_launches"]
+              for k in "bcf"}
+    fused16 = {f"slice7_calibration_16{k}": cal16[k]["fused_launches"]
+               for k in "bcdf"}
+    demo16 = demos16["northstar_grf"]
     print(json.dumps({"kernels": [{
         "name": "spectrum_quadform", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:137",
-        "launches": field15["quad_launches"], "max_abs_err": abs_err_path,
+        "launches": sum(quad16.values()), "max_abs_err": abs_err_path,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
         "bound_by": quad_by, "library_ms": library_ms,
         "launches_by_path": {"slice1_field_grf": launches_slice1,
@@ -2654,11 +3049,14 @@ def main():
                              "slice5_mesh_14b_rank0": mesh["b"]["quad_launches"],
                              "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"],
                              "slice6_pixel_field_15c_rank0":
-                                 field15["quad_launches"]}}, {
+                                 field15["quad_launches"],
+                             **quad16,
+                             "slice7_demo_northstar":
+                                 demo16["quad_launches"]}}, {
         "name": "spectrum_quadform_and_grad", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:73",
-        "launches": field15["fused_launches"],
+        "launches": sum(fused16.values()),
         "max_abs_err": abs_err_fused,
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
         "bound_by": fused_by, "library_ms": None,
@@ -2671,7 +3069,10 @@ def main():
                              "slice5_mesh_14c_rank0": mesh["c"]["fused_launches"],
                              "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"],
                              "slice6_pixel_field_15c_rank0":
-                                 field15["fused_launches"]}}]}))
+                                 field15["fused_launches"],
+                             **fused16,
+                             "slice7_demo_northstar":
+                                 demo16["fused_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ import torch
 from .models.grf import GrfConfig, pack_field_host
 from .result import MuseResult
 from .utils.device import resolve_device
+from .utils.tree import tree_map
 
 __all__ = ["grf_config_from_arrays", "x_obs", "observed", "theta", "latent",
            "packed_x_obs", "whites_from_arrays", "result_from_muse_tpu"]
@@ -44,10 +45,9 @@ def observed(obs: dict, device="cuda") -> dict:
 
 def theta(th, device="cuda"):
     """A θ of the JAX side (a scalar, an array such as a ``vector_funnel``
-    θ, or a dict of them) as float32 tensors on ``device``."""
-    if isinstance(th, dict):
-        return {k: x_obs(v, device) for k, v in th.items()}
-    return x_obs(th, device)
+    θ, or a dict, tuple or list of them) as float32 tensors on ``device``,
+    in the same structure."""
+    return tree_map(lambda v: x_obs(v, device), th)
 
 
 def latent(z, device="cuda"):

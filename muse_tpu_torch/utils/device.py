@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device) -> torch.device:
@@ -18,3 +18,12 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU), so a host clock read after it times the work and not its
+    enqueueing."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

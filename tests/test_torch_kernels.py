@@ -147,7 +147,9 @@ def _band_weight(n, nbands, device, sigma_noise=0.01):
 # and 5 lanes), with a flat weight and with the bandpower operator; then
 # under a mesh: a sims axis of 2 halves the north star's chunks (64, 26,
 # 25 lanes), a field axis of 2 halves the rows (the north star's 128, 1
-# and 51 lanes, the bandpower fit's 101 and its H's 5)
+# and 51 lanes, the bandpower fit's 101 and its H's 5); last, the
+# calibration studies' implicit H of 8 pixel-GRF sims and the 6-band
+# bandpower fit (49 lanes) and H (6)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,bands,rows", [
     (1, 1024, 0, None), (5, 1024, 0, None), (10, 1024, 0, None),
@@ -156,7 +158,8 @@ def _band_weight(n, nbands, device, sigma_noise=0.01):
     (101, 1024, 12, None), (5, 1024, 12, None), (3, 100, 0, None),
     (5, 33, 0, None), (64, 1024, 0, None), (26, 1024, 0, None),
     (25, 1024, 0, None), (128, 1024, 0, 512), (1, 1024, 0, 512),
-    (51, 1024, 0, 512), (101, 1024, 12, 512), (5, 1024, 12, 512)])
+    (51, 1024, 0, 512), (101, 1024, 12, 512), (5, 1024, 12, 512),
+    (8, 1024, 0, None), (49, 1024, 6, None), (6, 1024, 6, None)])
 def test_fused_kernel_matches_plain(cuda, B, n, bands, rows):
     """quad within 1e-5 relative of a float64 sum, half_grad bitwise
     ``z * w``, and a bitwise-equal rerun (no atomics)."""

@@ -20,6 +20,7 @@ from muse_tpu_torch.parallel import SimsMesh
 from muse_tpu_torch.solver import CompiledProblem
 from muse_tpu_torch.utils import (dummy_seed, lane_generator, resolve_device,
                                   sim_seeds)
+from muse_tpu_torch.utils.tree import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -61,7 +62,9 @@ def test_tf32_is_off_after_import():
 
 
 @pytest.mark.parametrize("theta", [
-    0.5, np.array([0.1, -0.2]), {"b": 1.0, "a": np.array([2.0, 3.0])}])
+    0.5, np.array([0.1, -0.2]), {"b": 1.0, "a": np.array([2.0, 3.0])},
+    np.arange(6.0).reshape(2, 3), (0.4, -0.7),
+    {"s": 0.5, "m": np.array([[1.0, -2.0], [0.25, 3.0]])}])
 def test_theta_spec_round_trips_like_jax(theta):
     spec = ThetaSpec.from_example(theta)
     jspec = JSpec.from_example(theta)
@@ -70,19 +73,111 @@ def test_theta_spec_round_trips_like_jax(theta):
     flat = spec.flatten(theta)
     np.testing.assert_allclose(flat, np.asarray(jspec.flatten(theta)),
                                rtol=1e-7)
-    user = spec.to_user(flat)
+    user, juser = spec.to_user(flat), jspec.to_user(jspec.flatten(theta))
+    assert type(user) is type(juser)
     if isinstance(theta, dict):
+        assert sorted(user) == sorted(juser)
         for k in theta:
             np.testing.assert_allclose(user[k], theta[k])
+            assert np.shape(user[k]) == np.shape(juser[k])
     else:
         np.testing.assert_allclose(user, theta)
+        assert np.shape(user) == np.shape(juser)
     # tensors: differentiable unflatten
     t = torch.as_tensor(flat, dtype=torch.float32).requires_grad_(True)
     tree = spec.unflatten(t)
-    leaves = tree.values() if isinstance(tree, dict) else [tree]
-    sum((v ** 2).sum() for v in leaves).backward()
+    sum((v ** 2).sum() for v in tree_leaves(tree)).backward()
     torch.testing.assert_close(t.grad, 2 * t.detach())
     torch.testing.assert_close(spec.flatten(tree), t.detach())
+
+
+@pytest.mark.parametrize("theta", [{"a": {"b": 1.0}}, (0.1, np.ones(2))])
+def test_theta_spec_refuses_what_jax_refuses(theta):
+    with pytest.raises((TypeError, ValueError)):
+        JSpec.from_example(theta)
+    with pytest.raises((TypeError, ValueError)):
+        ThetaSpec.from_example(theta)
+
+
+def _blocks_problems(dim=80, blocks=5):
+    """(muse_tpu problem, port problem) of a funnel whose five blocks take
+    their log-variances from θ = {"s": (2, 2), "t": scalar}, in θ's flat
+    order, on muse_tpu's data drawn at θ = 0."""
+    import jax
+    import jax.numpy as jnp
+    import muse_tpu
+
+    bs = dim // blocks
+
+    def lv_j(th):
+        return jnp.concatenate([jnp.ravel(th["s"]), jnp.reshape(th["t"], (1,))])
+
+    def white_j(key):
+        k1, k2 = jax.random.split(key)
+        return jax.random.normal(k1, (dim,)), jax.random.normal(k2, (dim,))
+
+    def x_of_white_j(W, th):
+        z = jnp.repeat(jnp.exp(lv_j(th) / 2), bs) * W[0]
+        return z + W[1], z
+
+    def log_like_j(x, z, th):
+        lv = jnp.repeat(lv_j(th), bs)
+        return -0.5 * (jnp.sum((x - z) ** 2) + jnp.sum(z ** 2 * jnp.exp(-lv))
+                       + jnp.sum(lv))
+
+    def lv_t(th):
+        return torch.cat([th["s"].reshape(-1), th["t"].reshape(1)])
+
+    def white_t(gen):
+        return (torch.randn(dim, generator=gen),
+                torch.randn(dim, generator=gen))
+
+    def x_of_white_t(W, th):
+        z = torch.exp(lv_t(th) / 2).repeat_interleave(bs) * W[0]
+        return z + W[1], z
+
+    def log_like_t(x, z, th):
+        lv = lv_t(th).repeat_interleave(bs)
+        return -0.5 * (((x - z) ** 2).sum() + (z ** 2 * torch.exp(-lv)).sum()
+                       + lv.sum())
+
+    th_true = {"s": jnp.zeros((2, 2)), "t": jnp.float32(0.0)}
+    x = x_of_white_j(white_j(jax.random.PRNGKey(42)), th_true)[0]
+    pj = muse_tpu.SimpleMuseProblem(
+        x, lambda k, th: x_of_white_j(white_j(k), th), log_like_j,
+        lambda th: -jnp.sum(lv_j(th) ** 2) / 18, sample_white=white_j,
+        x_of_white=x_of_white_j)
+    pt = SimpleMuseProblem(
+        torch.tensor(np.asarray(x)),
+        lambda g, th: x_of_white_t(white_t(g), th), log_like_t,
+        lambda th: -(lv_t(th) ** 2).sum() / 18, sample_white=white_t,
+        x_of_white=x_of_white_t)
+    return pj, pt
+
+
+def test_fit_with_a_structured_theta_matches_jax():
+    """muse_fit with a dict θ holding a (2, 2) leaf, both packages on the
+    same data and whites: the same scores and θ̂, handed back in θ's
+    structure under muse_tpu's names; then the port's own muse with its
+    covariance, in that structure."""
+    from torch_parity import assert_fits_agree, fits_on_jax_whites
+
+    pj, pt = _blocks_problems()
+    theta0 = {"s": np.full((2, 2), 0.2), "t": -0.1}
+    rj, rt = fits_on_jax_whites(pj, pt, theta0, 24, theta_rtol=1e-2)
+    assert_fits_agree(rj, rt)
+    assert rt.theta_names == rj.theta_names == (
+        "s[0]", "s[1]", "s[2]", "s[3]", "t")
+    uj, ut = rj.theta_user, rt.theta_user
+    assert sorted(ut) == ["s", "t"] and isinstance(ut["t"], float)
+    assert np.shape(ut["s"]) == np.shape(uj["s"]) == (2, 2)
+    np.testing.assert_allclose(ut["s"], np.asarray(uj["s"]), atol=1e-3)
+    np.testing.assert_allclose(ut["t"], float(uj["t"]), atol=1e-3)
+
+    res = muse_tpu_torch.muse(pt, theta0, nsims=24, theta_rtol=1e-2,
+                              grad_z_atol=1e-3, get_covariance=True, seed=3)
+    assert res.Sigma.shape == (5, 5) and np.isfinite(res.sigma).all()
+    assert np.shape(res.theta_user["s"]) == (2, 2)
 
 
 def test_result_save_load_round_trip(tmp_path):

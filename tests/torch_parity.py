@@ -29,11 +29,14 @@ from muse_tpu_torch.solver.compiled import CompiledProblem
 from muse_tpu_torch.theta import ThetaSpec
 
 
-def fits_on_jax_whites(pj, pt, theta0, nsims, *, z0=None, seed=1, **fit_kw):
+def fits_on_jax_whites(pj, pt, theta0, nsims, *, z0=None, seed=1, key=None,
+                       **fit_kw):
     """(muse_tpu's MuseResult, the port's) of ``muse_fit`` from ``theta0``
-    with ``nsims`` simulations whose whites muse_tpu drew. ``z0`` is the
-    JAX side's warm start (converted for the port)."""
-    key = jax.random.PRNGKey(seed)
+    with ``nsims`` simulations whose whites muse_tpu drew from ``key``
+    (default ``PRNGKey(seed)``). ``z0`` is the JAX side's warm start
+    (converted for the port)."""
+    if key is None:
+        key = jax.random.PRNGKey(seed)
     rj = muse_tpu.MuseResult()
     muse_tpu.muse_fit(rj, pj, theta0, key=key, nsims=nsims, z0=z0, **fit_kw)
 
@@ -43,8 +46,7 @@ def fits_on_jax_whites(pj, pt, theta0, nsims, *, z0=None, seed=1, **fit_kw):
         *(np.asarray(w) for w in jax.vmap(pj.sample_white)(keys)),
         device="cpu")
     spec = ThetaSpec.from_example(theta0)
-    comp = CompiledProblem(pt, spec, np.atleast_1d(
-        np.asarray(theta0, np.float64)))
+    comp = CompiledProblem(pt, spec, spec.flatten(theta0))
     comp.sample_whites = lambda seeds, x_only=False: W   # one chunk of lanes
     rt = muse_tpu_torch.muse_fit(
         muse_tpu_torch.MuseResult(), pt, theta0, nsims=nsims, seed=seed,
