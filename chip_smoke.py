@@ -43,7 +43,12 @@ full width, each checked against an exact oracle. The paths:
     pixel GRF (amplitude, and amplitude with tilt), the 6-band bandpower
     model, lensing and the north star, each fitted with J and H on 10-20
     data realizations at full width, and the three demos of
-    ``muse_tpu_torch/examples``.
+    ``muse_tpu_torch/examples``;
+  * slice 8, the measuring programs: ``python -m muse_tpu_torch.bench``
+    (the port of bench.py) for its six models at 100 sims × 1024², with
+    ``--no-hoist`` and ``--max-batch 32``, and the three scripts of
+    ``muse_tpu_torch/scripts``, each run through its ``main`` in this
+    process.
 
 The noise level and θ_rtol are the repo's 1024² north-star settings. At
 the default σ = 1 the field is so faint that the marginal MLE of a draw
@@ -54,9 +59,10 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
   1. the card's name and power limit (``nvidia-smi``);
   2. the kernel build and its seconds;
   3. spectrum_quadform vs plain at every lane count a main path gives it
-     at n=1024 (``QUAD_LANES``: 1, 17, 20, 40, 64, 101, 128), and at n=100 and
-     n=33 (ragged tails, misaligned lanes): max relative error ≤ 1e-5, a
-     bitwise-equal rerun, and the autograd gradients against the plain
+     at n=1024 (``QUAD_LANES``: 1, 5, 17, 20, 32, 40, 64, 101, 128), and
+     at n=100 and n=33 (ragged tails, misaligned lanes): max relative
+     error ≤ 1e-5, a bitwise-equal rerun, and the autograd gradients
+     against the plain
      version's (rtol 1e-5, atol 1e-5 relative to the largest entry); then
      on the slices' own θ-score inputs at their own lane counts (slice 2:
      x̃ drawn by the problem's sampler and the weight C/(C+σ²)² at the
@@ -77,7 +83,8 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
   6. spectrum_quadform_and_grad vs plain at every lane count a main path
      gives it at n=1024 (``FUSED_LANES``: the fits' chunks of 128, 101 and
      1 lanes; the MAP solves of every get_H, 51, 40, 20, 10, 8 and 5
-     lanes; under a sims axis of 2 the halves 64, 26 and 25) on the GRF
+     lanes; under a sims axis of 2 the halves 64, 26 and 25; phase 17's
+     chunks of 32 and 5 and its A/B's 17) on the GRF
      operator A = 1 + C/σ², at 101 and 5 lanes also on the bandpower
      model's 12-band operator and at 49 and 6 on its 6-band one (phase
      16), on a field axis of 2's row slices of 512 × 1026 (both halves:
@@ -260,17 +267,42 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      --nsims 100 --hmc-samples 500`` (its HMC contender cut from 2000
      samples for time), each with its own asserts and its accuracy line,
      and their walls. Every study runs before a failed gate fails the run.
+ 17. the measuring programs (``RUNS17``), each through its ``main`` with
+     its earlier lines (the card, the timed step's peak memory, the check's
+     gaps) in order with its result, and the kernel counters set to 0 just
+     before it and read just after. 17a: ``muse_tpu_torch.bench --grid 1024
+     --nsims 100 --model`` each of grf, grf-pixel, lensing, funnel, ppl
+     and bandpower (the funnel and the PPL at 1024 dims), printing
+     bench.py's JSON line: ``certified`` true (in the first chunk, and in
+     the last where it is narrower, the first sim lane and the last lane
+     against keyed B = 1 re-solves: objective and ‖ẑ‖ within certify.py's
+     tolerances, θ-score within 1e-3 of the largest entry, the same
+     convergence flag), no ``floor_violation``, ``value`` and ``vs_baseline``
+     finite and positive. 17b: grf with ``--no-hoist`` and with
+     ``--max-batch 32`` (chunks of 32, 32, 32 and 5 lanes), the same
+     gates. 17c: ``scripts.kernel_ab_bench`` (the field GRF's keyed
+     ``muse_step``, 16 sims × 1024², with the CUDA quadform and with its
+     plain version; one launch per batched θ-score with the kernel, none
+     with the plain). 17d: ``scripts.bench_noise_modes`` (100 sims ×
+     1024², noise "direct" against "fft"). 17e:
+     ``scripts.lensing_calibration_study --n 256 --nsims 16 --reps 8``: no
+     realization diverges (|θ̂ − 0.3| < 1) and every σ is finite. In every
+     run quadform launches = θ-score evaluations, > 0 exactly where the
+     run's model scores through the kernel, and fused launches = the CG
+     steps of the runs whose PCG runs through it (none elsewhere); at
+     bench.py's σ_noise = 1 those PCGs take no step.
 
-The wrappers record every input shape they launch at; after phase 16 the
+The wrappers record every input shape they launch at; after phase 17 the
 run fails if a kernel ran at a shape that phases 3 and 6 did not hold
 against the plain version, and phase 15 checks its ranks' shapes alike.
 No phase's failure is caught: any failure exits non-zero. The line before
-last is ``{"kernels": [...]}``: each kernel's ``launches`` is its count on
-slice 7's path, the calibration studies of phase 16 (the counters set to 0
-just before each study and read just after), and ``launches_by_path``
-holds the count of every slice's path. The last line is ``{"ok": true,
-"device": …}``. Without a card, or without the package beside it, it exits
-non-zero and prints no result.
+last is ``{"kernels": [...]}``: ``launches_by_path`` holds each kernel's
+count on every slice's paths (the counters set to 0 just before each path
+and read just after), and its ``launches`` is their sum: slice 8's own
+paths, phase 17's bench runs at bench.py's σ_noise = 1, run the fused
+kernel no time, since their PCGs meet the MAP tolerance at Z₀ = 0. The
+last line is ``{"ok": true, "device": …}``. Without a card, or without
+the package beside it, it exits non-zero and prints no result.
 """
 
 import json
@@ -722,12 +754,20 @@ MESH_H_LANES2 = sorted(_halves(H_NSIMS2))
 # 6-band bandpower model's fit of 48 sims (49 lanes) and H of 6 sims; the
 # north star's as slice 2's
 H_NSIMS16_GRF, NSIMS16_BAND, H_NSIMS16_BAND, NBANDS16 = 8, 48, 6, 6
+# Slice 8, the measuring programs (phase 17) at bench.py's defaults: 100
+# sims × 1024² in one call of 101 lanes; the B = 1 baseline, check and
+# floor lanes; 17b's --max-batch 32 (chunks of 32, 32, 32 and 5 lanes);
+# 17c's A/B of 16 sims (17 lanes)
+NSIMS17, MAX_BATCH17, AB_NSIMS17 = 100, 32, 16
+LANES17 = sorted({1, NSIMS17 + 1, MAX_BATCH17, (NSIMS17 + 1) % MAX_BATCH17,
+                  AB_NSIMS17 + 1})
 QUAD_LANES = sorted({1, 17, 101, *FIT_CHUNKS2, NSIMS3 + 1, H_LANES3,
-                     NSIMS4_GRF + 1, H_LANES4_PIXEL[1], *MESH_LANES2})
+                     NSIMS4_GRF + 1, H_LANES4_PIXEL[1], *MESH_LANES2,
+                     *LANES17})
 FUSED_LANES = sorted({1, 17, H_NSIMS2, *FIT_CHUNKS2, NSIMS3 + 1, H_NSIMS3,
                       H_LANES3, NSIMS4_GRF + 1, H_CHUNK4_BAND,
                       *H_LANES4_PIXEL, *MESH_LANES2, *MESH_H_LANES2,
-                      H_NSIMS16_GRF})
+                      H_NSIMS16_GRF, *LANES17})
 # the bandpower operators' lane counts: slice 4's 12 bands, slice 7's 6
 FUSED_BAND = ((NBANDS4, (NSIMS4_GRF + 1, H_CHUNK4_BAND)),
               (NBANDS16, (NSIMS16_BAND + 1, H_NSIMS16_BAND)))
@@ -2560,6 +2600,117 @@ def phase16(card, dev):
     return studies, demos
 
 
+# ------------------------------------------------------------------ #
+# phase 17: the measuring programs (slice 8)
+# ------------------------------------------------------------------ #
+
+# each run of phase 17: (its part, the module of muse_tpu_torch that runs
+# it, argv of its main, whether it launches the quadform, whether its PCG
+# runs through the fused kernel). 17a is bench.py's defaults for each
+# model (the funnel and the PPL at 1024 dims); the quadform runs in the GRF
+# θ-scores, the fused kernel at every PCG step of the GRF and bandpower
+# solves; lensing, the funnel and the PPL launch neither. At bench.py's
+# σ_noise = 1 the 1024² PCGs meet their tolerance (atol·√nz on ‖∇z‖) at
+# Z₀ = 0 and take no step, in muse_tpu too (its grf.py:609 has the same
+# test), so these runs launch the fused kernel as often as their PCGs step:
+# no time
+MODELS17 = ("grf", "grf-pixel", "lensing", "funnel", "ppl", "bandpower")
+_GRID17 = ["--grid", "1024", "--nsims", str(NSIMS17)]
+RUNS17 = {
+    **{m: ("a", "bench", [*_GRID17, "--model", m], m.startswith("grf"),
+           m.startswith("grf") or m == "bandpower") for m in MODELS17},
+    "grf_no_hoist": ("b", "bench", [*_GRID17, "--no-hoist"], True, True),
+    f"grf_max_batch_{MAX_BATCH17}": (
+        "b", "bench", [*_GRID17, "--max-batch", str(MAX_BATCH17)], True,
+        True),
+    "kernel_ab": ("c", "scripts.kernel_ab_bench",
+                  ["--n", "1024", "--nsims", str(AB_NSIMS17)], True, False),
+    "noise_modes": ("d", "scripts.bench_noise_modes", _GRID17, True, True),
+    # 256² and 16 sims (the JAX script's defaults), 8 realizations
+    "lensing_study": ("e", "scripts.lensing_calibration_study",
+                      ["--n", "256", "--nsims", "16", "--reps", "8"], False,
+                      False),
+}
+
+
+def phase17(card):
+    """The port's measuring programs in this process, each through its
+    ``main`` (17a-17e, RUNS17). Returns each run's result, wall and kernel
+    launches (the counters set to 0 just before the run and read just
+    after); raises after the last run if a gate failed."""
+    import contextlib
+    import importlib
+    import math
+
+    import torch
+
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    from muse_tpu_torch.ops.cg import batched_cg
+
+    def positive(v):
+        return isinstance(v, float) and math.isfinite(v) and v > 0
+
+    runs, fails = {}, []
+    for key, (part, modname, argv, quad, fused) in RUNS17.items():
+        mod = importlib.import_module(f"muse_tpu_torch.{modname}")
+        phase(f"phase 17{part} [{card}] python -m muse_tpu_torch.{modname} "
+              f"{' '.join(argv)}")
+        torch.cuda.synchronize()
+        gs.reset_counts()
+        batched_cg.curvature_steps = 0
+        t0 = time.perf_counter()
+        # the programs' earlier lines (the card, peak memory, the check's
+        # gaps) go to stderr: keep them in order with their results
+        with contextlib.redirect_stderr(sys.stdout):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        out = {"result": res, "s": time.perf_counter() - t0,
+               "quad_launches": gs.spectrum_quadform_cuda.launches,
+               "quad_evaluations": gs.SpectrumQuadform.evaluations,
+               "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
+               "cg_steps": batched_cg.curvature_steps}
+        f = []
+        if not (out["quad_launches"] == out["quad_evaluations"]
+                and (out["quad_launches"] > 0) == quad
+                and out["fused_launches"] == (out["cg_steps"] if fused
+                                              else 0)):
+            f.append(f"kernel launches: quadform {out['quad_launches']} for "
+                     f"{out['quad_evaluations']} evaluations, fused "
+                     f"{out['fused_launches']} for {out['cg_steps']} CG "
+                     "steps")
+        if modname == "bench":
+            if res["certified"] is not True:
+                f.append("the check of the timed step failed")
+            if res.get("floor_violation"):
+                f.append("floor_violation")
+            if not (positive(res["value"]) and positive(res["vs_baseline"])):
+                f.append(f"value {res['value']}, vs_baseline "
+                         f"{res['vs_baseline']}")
+        elif key == "kernel_ab":
+            if not positive(res["ratio"]):
+                f.append(f"cuda/plain {res['ratio']}")
+        elif key == "noise_modes":
+            if not (positive(res["direct_s"]) and positive(res["fft_s"])):
+                f.append(f"walls {res['direct_s']}, {res['fft_s']}")
+        else:
+            rows, summary = res
+            if summary["diverged"] or not all(
+                    positive(r["sigma"]) for r in rows):
+                f.append(f"{summary['diverged']} realizations diverged; σ "
+                         f"{[r['sigma'] for r in rows]}")
+        phase(f"phase 17{part} [{card}] {key}: {out['s']:.2f} s; quadform "
+              f"launches {out['quad_launches']} (= θ-score evaluations "
+              f"{out['quad_evaluations']}), fused {out['fused_launches']} "
+              f"(CG steps {out['cg_steps']})")
+        for msg in f:
+            phase(f"phase 17{part} GATE FAILED: {key}: {msg}")
+        fails += [f"17{part} {key}: {msg}" for msg in f]
+        runs[key] = out
+    if fails:
+        raise AssertionError("phase 17: " + "; ".join(fails))
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3012,6 +3163,8 @@ def main():
     phase(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s")
     cal16, demos16 = phase16(card, dev)
     phase(f"phases 1-16 took {time.perf_counter() - t_start:.1f} s")
+    runs17 = phase17(card)
+    phase(f"phases 1-17 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -3034,45 +3187,59 @@ def main():
     fused16 = {f"slice7_calibration_16{k}": cal16[k]["fused_launches"]
                for k in "bcdf"}
     demo16 = demos16["northstar_grf"]
+    # slice 8's paths: phase 17's runs that launch a kernel or run a PCG
+    # through it, each with the counters set to 0 just before it and read
+    # just after
+    quad17 = {f"slice8_bench_{k.replace('-', '_')}": runs17[k]["quad_launches"]
+              for k in RUNS17 if RUNS17[k][3]}
+    fused17 = {f"slice8_bench_{k.replace('-', '_')}":
+               runs17[k]["fused_launches"] for k in RUNS17 if RUNS17[k][4]}
+    by_path = {"spectrum_quadform": {
+        "slice1_field_grf": launches_slice1,
+        "slice2_northstar": launches_slice2,
+        "slice3_lbfgs": launches_slice3,
+        "slice4_grf_pixel": slice4["quad_grf_pixel"],
+        "slice5_mesh_14a": mesh["a"]["quad_launches"],
+        "slice5_mesh_14b_rank0": mesh["b"]["quad_launches"],
+        "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"],
+        "slice6_pixel_field_15c_rank0": field15["quad_launches"],
+        **quad16,
+        "slice7_demo_northstar": demo16["quad_launches"],
+        **quad17}, "spectrum_quadform_and_grad": {
+        "slice2_northstar": fused_launches,
+        "slice3_cg_comparison": fused_cg3,
+        "slice4_bandpower": slice4["fused_bandpower"],
+        "slice4_grf_pixel": slice4["fused_grf_pixel"],
+        "slice5_mesh_14a": mesh["a"]["fused_launches"],
+        "slice5_mesh_14b_rank0": mesh["b"]["fused_launches"],
+        "slice5_mesh_14c_rank0": mesh["c"]["fused_launches"],
+        "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"],
+        "slice6_pixel_field_15c_rank0": field15["fused_launches"],
+        **fused16,
+        "slice7_demo_northstar": demo16["fused_launches"],
+        **fused17}}
+    # each kernel's launches over every path of the run (slice 8's own
+    # paths run the fused kernel no time: their PCGs take no step)
+    for name, paths in by_path.items():
+        if not sum(paths.values()) > 0:
+            raise AssertionError(f"{name} was launched on no path: {paths}")
     print(json.dumps({"kernels": [{
         "name": "spectrum_quadform", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:137",
-        "launches": sum(quad16.values()), "max_abs_err": abs_err_path,
+        "launches": sum(by_path["spectrum_quadform"].values()),
+        "max_abs_err": abs_err_path,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
         "bound_by": quad_by, "library_ms": library_ms,
-        "launches_by_path": {"slice1_field_grf": launches_slice1,
-                             "slice2_northstar": launches_slice2,
-                             "slice3_lbfgs": launches_slice3,
-                             "slice4_grf_pixel": slice4["quad_grf_pixel"],
-                             "slice5_mesh_14a": mesh["a"]["quad_launches"],
-                             "slice5_mesh_14b_rank0": mesh["b"]["quad_launches"],
-                             "slice5_mesh_14c_rank0": mesh["c"]["quad_launches"],
-                             "slice6_pixel_field_15c_rank0":
-                                 field15["quad_launches"],
-                             **quad16,
-                             "slice7_demo_northstar":
-                                 demo16["quad_launches"]}}, {
+        "launches_by_path": by_path["spectrum_quadform"]}, {
         "name": "spectrum_quadform_and_grad", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",
         "replaces": "muse_tpu/ops/pallas_grf.py:73",
-        "launches": sum(fused16.values()),
+        "launches": sum(by_path["spectrum_quadform_and_grad"].values()),
         "max_abs_err": abs_err_fused,
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
         "bound_by": fused_by, "library_ms": None,
-        "launches_by_path": {"slice2_northstar": fused_launches,
-                             "slice3_cg_comparison": fused_cg3,
-                             "slice4_bandpower": slice4["fused_bandpower"],
-                             "slice4_grf_pixel": slice4["fused_grf_pixel"],
-                             "slice5_mesh_14a": mesh["a"]["fused_launches"],
-                             "slice5_mesh_14b_rank0": mesh["b"]["fused_launches"],
-                             "slice5_mesh_14c_rank0": mesh["c"]["fused_launches"],
-                             "slice5_mesh_14d_rank0": mesh["d"]["fused_launches"],
-                             "slice6_pixel_field_15c_rank0":
-                                 field15["fused_launches"],
-                             **fused16,
-                             "slice7_demo_northstar":
-                                 demo16["fused_launches"]}}]}))
+        "launches_by_path": by_path["spectrum_quadform_and_grad"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

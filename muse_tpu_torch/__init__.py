@@ -44,6 +44,11 @@ gathered latent. ``grf_field_problem(use_pallas=False)`` runs the
 quadform's plain version, the JAX package's A/B switch. With it the port
 does everything the JAX package does, apart from what is left out on
 purpose (ROADMAP).
+
+Slice 8 ports the repo's measuring programs: ``python -m
+muse_tpu_torch.bench`` (the headline benchmark of ``bench.py``) and the
+scripts of ``muse_tpu_torch.scripts`` (the kernel A/B, the noise modes and
+the lensing calibration study).
 """
 
 import torch as _torch
