@@ -48,7 +48,13 @@ full width, each checked against an exact oracle. The paths:
     (the port of bench.py) for its six models at 100 sims × 1024², with
     ``--no-hoist`` and ``--max-batch 32``, and the three scripts of
     ``muse_tpu_torch/scripts``, each run through its ``main`` in this
-    process.
+    process;
+  * slice 9, kernel 1 with K weights: every GRF θ-score takes all its θ
+    components from one ``spectrum_quadforms`` launch (one read of z),
+    and the field GRF's θ-score is analytic (no backward): phases 3 and 5
+    hold and time the kernel at K = 1 and 2, phase 5b compares the field
+    GRF's batched θ-score routes, and every path's quadform count is the
+    new wrapper's.
 
 The noise level and θ_rtol are the repo's 1024² north-star settings. At
 the default σ = 1 the field is so faint that the marginal MLE of a draw
@@ -58,12 +64,17 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
 
   1. the card's name and power limit (``nvidia-smi``);
   2. the kernel build and its seconds;
-  3. spectrum_quadform vs plain at every lane count a main path gives it
-     at n=1024 (``QUAD_LANES``: 1, 5, 17, 20, 32, 40, 64, 101, 128), and
-     at n=100 and n=33 (ragged tails, misaligned lanes): max relative
-     error ≤ 1e-5, a bitwise-equal rerun, and the autograd gradients
-     against the plain
-     version's (rtol 1e-5, atol 1e-5 relative to the largest entry); then
+  3. the autograd gradients of ``spectrum_quadform`` (the field GRF's
+     log-likelihood) against the plain version's (rtol 1e-5, atol 1e-5
+     relative to the largest entry); then spectrum_quadforms, the
+     θ-scores' wrapper, at every lane count a main path gives it at
+     n=1024 (``QUAD_LANES``: 1, 5, 17, 20, 32, 40, 64, 101, 128) with K = 1
+     and K = 2 weights (the field GRF's score weights w·∂log C/C), and at
+     (3, 100) with K = 3, (5, 33) with K = 4, (6, 33) with K = 2 (ragged
+     tails, misaligned lanes): max relative error ≤ 1e-6 against its
+     plain version in float64, a bitwise rerun, each column bitwise the
+     K = 1 wrapper ``spectrum_quadform`` on its weight, and the first,
+     middle and last lanes bitwise their launch at B = 1. The same checks
      on the slices' own θ-score inputs at their own lane counts (slice 2:
      x̃ drawn by the problem's sampler and the weight C/(C+σ²)² at the
      fit's first θ and at the MLE, chunks of 128 lanes and the one-lane
@@ -72,14 +83,25 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      halves of the grid; slice 3: 101 and 40 lanes; slice 4's pixel GRF:
      packed maps and the weight w·C/((C+σ²)²n²), 101 and 20 lanes, and
      under a field axis of 2 both halves of its rows at 101 and 20
-     lanes), held against the plain version in float64 (max relative
-     error ≤ 1e-5) with a bitwise rerun;
+     lanes; slice 7's pixel GRF with the tilt, both weights, at 101);
   4. the slice 1 fit: |θ̂ − MLE| < 3σ_F/√100 + 0.02, 0.5 < σ/σ_F < 2, and
-     every batched log-likelihood evaluation of the fit went through the
-     kernel (launch count = evaluation count > 0);
-  5. times: the quadform kernel and plain at B=101 × 1024² (CUDA events,
-     median of 20 samples of 20 launches each), seconds per
-     ``muse_step``, and the whole slice 1 fit + J + H;
+     every batched θ-score evaluation of the fit went through the kernel
+     (spectrum_quadforms' launch count = evaluation count > 0, none of the
+     log-likelihood's quadform);
+  5. times: the quadforms kernel at B=101 × 1024² with K = 1 and K = 2, in
+     turns, and their plain versions (CUDA events, median of 20 samples of
+     20 launches each; K = 2 must take ≤ 1.2× K = 1), seconds per
+     ``muse_step``, and the whole slice 1 fit + J + H. 5b: the field GRF's
+     batched θ-score at 101 lanes × 1024² four ways
+     (``scripts/theta_score_bench.py``): analytic through the kernel,
+     analytic through the plain quadforms, ``vmap(grad(log_like))``
+     through the kernel's forward and through the plain einsum: each
+     one's CUDA-event ms (median of 20), its torch.profiler table, its
+     kernel launches (1, 0, 1, 0), and its error against float64 and
+     against ``vmap(grad)`` through the kernel, relative to the score's
+     two cancelling terms (each ≤ 1e-5, the analytic kernel route's
+     against float64 ≤ 1e-6); it fails unless analytic kernel < analytic
+     plain < the faster ``vmap(grad)`` route;
   6. spectrum_quadform_and_grad vs plain at every lane count a main path
      gives it at n=1024 (``FUSED_LANES``: the fits' chunks of 128, 101 and
      1 lanes; the MAP solves of every get_H, 51, 40, 20, 10, 8 and 5
@@ -295,10 +317,14 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
 The wrappers record every input shape they launch at; after phase 17 the
 run fails if a kernel ran at a shape that phases 3 and 6 did not hold
 against the plain version, and phase 15 checks its ranks' shapes alike.
+Every path's quadform count is kernel 1's launches through
+``spectrum_quadforms_cuda`` against ``SpectrumQuadforms``' evaluations,
+and no path launches the K = 1 wrapper of the log-likelihood.
 No phase's failure is caught: any failure exits non-zero. The line before
 last is ``{"kernels": [...]}``: ``launches_by_path`` holds each kernel's
 count on every slice's paths (the counters set to 0 just before each path
-and read just after), and its ``launches`` is their sum: slice 8's own
+and read just after), kernel 1's row adds its K = 2 times (``ms_k2``,
+``plain_ms_k2``, ``bound_ms_k2``), and ``launches`` is their sum: slice 8's own
 paths, phase 17's bench runs at bench.py's σ_noise = 1, run the fused
 kernel no time, since their PCGs meet the MAP tolerance at Z₀ = 0. The
 last line is ``{"ok": true, "device": …}``. Without a card, or without
@@ -368,6 +394,28 @@ def least_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quad_counts():
+    """Kernel 1's counters since the last ``reset_counts``: the launches of
+    the θ-scores' wrapper ``spectrum_quadforms_cuda`` and the forward
+    evaluations of its Function ``SpectrumQuadforms`` (equal on a card,
+    one per batched θ-score), and the launches of its K = 1 wrapper
+    ``spectrum_quadform_cuda`` (the field GRF's log-likelihood, which no
+    main path evaluates: 0 on every path, and gated so)."""
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    return {"quad_launches": gs.spectrum_quadforms_cuda.launches,
+            "quad_evaluations": gs.SpectrumQuadforms.evaluations,
+            "quad1_launches": gs.spectrum_quadform_cuda.launches}
+
+
+def kernel_shapes():
+    """Every input shape each kernel wrapper launched at in this process."""
+    from muse_tpu_torch.ops import grf_spectrum as gs
+    return {"spectrum_quadform": gs.spectrum_quadform_cuda.shapes,
+            "spectrum_quadforms": gs.spectrum_quadforms_cuda.shapes,
+            "spectrum_quadform_and_grad":
+                gs.spectrum_quadform_and_grad_cuda.shapes}
 
 
 def profile_steps(step, card, label, nsteps=3, top=10, fft_share=False):
@@ -499,8 +547,7 @@ def phase9(card, prob3, mle3, sig_F3):
     torch.cuda.synchronize()
     t_h = time.perf_counter() - t0 - t_fit - t_j
     rounds = res3.metadata["fd_adaptive"]
-    c = {"quad_launches": gs.spectrum_quadform_cuda.launches,
-         "quad_evaluations": gs.SpectrumQuadform.evaluations,
+    c = {**quad_counts(),
          "muse_step_white_calls": fit_steps,
          "fd_rounds": len(rounds),
          "lbfgs_iterations": batched_lbfgs.iterations,
@@ -542,7 +589,8 @@ def phase9(card, prob3, mle3, sig_F3):
     # one launch per batched θ-score: each fit step, no new J sims
     # (the fit's scores are reused), one FD stencil batch per round
     if not (c["quad_launches"] > 0 and c["quad_launches"]
-            == c["quad_evaluations"] == fit_steps + len(rounds)):
+            == c["quad_evaluations"] == fit_steps + len(rounds)
+            and c["quad1_launches"] == 0):
         raise AssertionError(f"quadform launches do not match the "
                              f"θ-score evaluations: {c}")
     peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1288,8 +1336,8 @@ def phase13(card, dev, field):
     batched_cg.curvature_steps = 0
     torch.cuda.reset_peak_memory_stats()
     res_g, t_g = timed(lambda: muse_tpu_torch.muse(pg, 0.5, **kw))
-    quad, evals = gs.spectrum_quadform_cuda.launches, \
-        gs.SpectrumQuadform.evaluations
+    qc = quad_counts()
+    quad, evals = qc["quad_launches"], qc["quad_evaluations"]
     fused_grf = gs.spectrum_quadform_and_grad_cuda.launches
     th, sig = float(res_g.theta[0]), float(res_g.sigma[0])
     steps = len(res_g.history)
@@ -1313,7 +1361,8 @@ def phase13(card, dev, field):
         raise AssertionError(f"σ {sig} vs σ_F {sig_g}")
     if not d_field < 0.25 * sig_g:
         raise AssertionError("the whitened and the field latent disagree")
-    if not (quad > 0 and quad == evals == steps + 1):
+    if not (quad > 0 and quad == evals == steps + 1
+            and qc["quad1_launches"] == 0):
         raise AssertionError(f"{quad} quadform launches, {evals} score "
                              f"evaluations, {steps + 1} chunks")
     if not fused_grf == batched_cg.curvature_steps > 0:
@@ -1389,8 +1438,7 @@ def northstar_on(mesh, dev):
             "collectives": mesh.collectives,
             "fit_collectives": fit_collectives,
             "bytes": mesh.collective_bytes,
-            "quad_launches": gs.spectrum_quadform_cuda.launches,
-            "quad_evaluations": gs.SpectrumQuadform.evaluations,
+            **quad_counts(),
             "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
             "cg_steps": batched_cg.curvature_steps,
             "muse_step_white_calls": calls[0]}
@@ -1499,10 +1547,8 @@ def _mesh_rank(rank, port, out_dir):
                 lambda: sims.gather_sims(table, lo, NSIMS2 + 1)),
             "broadcast (4,) float64": collective_ms(
                 lambda: sims.broadcast_host(np.zeros(4)))}
-        out["shapes"] = {
-            "spectrum_quadform": sorted(gs.spectrum_quadform_cuda.shapes),
-            "spectrum_quadform_and_grad": sorted(
-                gs.spectrum_quadform_and_grad_cuda.shapes)}
+        out["shapes"] = {name: sorted(shapes)
+                         for name, shapes in kernel_shapes().items()}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -1641,7 +1687,8 @@ def phase14(card, dev, ref7, walls7, mle2, sig_F2, band13, held, comp2,
         z = torch.randn((B, rows, 1026), generator=g, device=dev)
         w = torch.rand((rows, 1026), generator=g, device=dev) + 0.5
         L = rows * 1026
-        q = [cuda_ms(lambda: gs.spectrum_quadform_cuda(z, w)),
+        # the θ-scores' K = 1 launch
+        q = [cuda_ms(lambda: gs.spectrum_quadforms_cuda(z, w[None])),
              cuda_ms(lambda: gs.spectrum_quadform_plain(z, w)),
              cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w)),
              *least_ms((B * L + L + B) * 4, 3 * B * L)]
@@ -1707,7 +1754,8 @@ def phase14(card, dev, ref7, walls7, mle2, sig_F2, band13, held, comp2,
         for run in (b, c):
             if not (run["muse_step_white_calls"] > 0 and run["quad_launches"]
                     == run["quad_evaluations"]
-                    == run["muse_step_white_calls"]):
+                    == run["muse_step_white_calls"]
+                    and run["quad1_launches"] == 0):
                 raise AssertionError(f"rank {r}: quadform launches do not "
                                      f"match the θ-score evaluations: {run}")
             if not run["fused_launches"] == run["cg_steps"] > 0:
@@ -1792,8 +1840,7 @@ def _rank_counts(mesh):
     """The kernels' and the mesh's counters, as a dict."""
     from muse_tpu_torch.ops import grf_spectrum as gs
     from muse_tpu_torch.ops.cg import batched_cg
-    return {"quad_launches": gs.spectrum_quadform_cuda.launches,
-            "quad_evaluations": gs.SpectrumQuadform.evaluations,
+    return {**quad_counts(),
             "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
             "cg_steps": batched_cg.curvature_steps,
             "collectives": mesh.collectives,
@@ -1967,10 +2014,8 @@ def _field_rank(rank, port, out_dir):
                "15c": pixel15_on(mesh, dev, x_obs)}
         out["15d"] = users15_on(mesh, dev)
         out["15e"] = lensing15_on(mesh, dev)
-        out["shapes"] = {
-            "spectrum_quadform": sorted(gs.spectrum_quadform_cuda.shapes),
-            "spectrum_quadform_and_grad": sorted(
-                gs.spectrum_quadform_and_grad_cuda.shapes)}
+        out["shapes"] = {name: sorted(shapes)
+                         for name, shapes in kernel_shapes().items()}
         with open(os.path.join(out_dir, f"field{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -2145,7 +2190,8 @@ def phase15(card, dev, prob4, pixel13, users10, lensing12, held):
     z = torch.randn((B, rows, 1026), generator=g, device=dev)
     w = torch.rand((rows, 1026), generator=g, device=dev) + 0.5
     L = rows * 1026
-    q = [cuda_ms(lambda: gs.spectrum_quadform_cuda(z, w)),
+    # the θ-scores' K = 1 launch
+    q = [cuda_ms(lambda: gs.spectrum_quadforms_cuda(z, w[None])),
          cuda_ms(lambda: gs.spectrum_quadform_plain(z, w)),
          cuda_ms(lambda: torch.einsum("bnm,bnm,nm->b", z, z, w)),
          *least_ms((B * L + L + B) * 4, 3 * B * L)]
@@ -2211,7 +2257,8 @@ def phase15(card, dev, prob4, pixel13, users10, lensing12, held):
         gate(abs(c["theta"] - ref["mle"]) < bound
              and 0.5 < c["sigma"] / ref["sigma_F"] < 2,
              f"15c rank {r} misses grf_problem's accuracy gates")
-        gate(c["quad_launches"] == c["quad_evaluations"] > 0,
+        gate(c["quad_launches"] == c["quad_evaluations"] > 0
+             and c["quad1_launches"] == 0,
              f"15c rank {r}: quadform launches")
         gate(c["fused_launches"] == c["cg_steps"] > 0,
              f"15c rank {r}: fused launches")
@@ -2539,8 +2586,7 @@ def phase16(card, dev):
         gs.reset_counts()
         batched_cg.curvature_steps = 0
         out, f = study16(key, dev, SIZE16[key], card, sync)
-        out.update(quad_launches=gs.spectrum_quadform_cuda.launches,
-                   quad_evaluations=gs.SpectrumQuadform.evaluations,
+        out.update(**quad_counts(),
                    fused_launches=gs.spectrum_quadform_and_grad_cuda.launches,
                    cg_steps=batched_cg.curvature_steps,
                    peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2553,6 +2599,7 @@ def phase16(card, dev):
         fused = key in "bcdf"
         if not (out["quad_launches"] == out["quad_evaluations"]
                 and (out["quad_launches"] > 0) == quad
+                and out["quad1_launches"] == 0
                 and (out["fused_launches"] > 0) == fused
                 and (out["fused_launches"] == out["cg_steps"]
                      or not fused)):
@@ -2588,8 +2635,7 @@ def phase16(card, dev):
         t0 = time.perf_counter()
         out = mod.main(argv)
         sync()
-        out.update(s=time.perf_counter() - t0,
-                   quad_launches=gs.spectrum_quadform_cuda.launches,
+        out.update(s=time.perf_counter() - t0, **quad_counts(),
                    fused_launches=gs.spectrum_quadform_and_grad_cuda.launches)
         phase(f"phase 16g [{card}] {name}: {out['s']:.2f} s; quadform "
               f"launches {out['quad_launches']}, fused "
@@ -2665,13 +2711,13 @@ def phase17(card):
             res = mod.main(argv)
         torch.cuda.synchronize()
         out = {"result": res, "s": time.perf_counter() - t0,
-               "quad_launches": gs.spectrum_quadform_cuda.launches,
-               "quad_evaluations": gs.SpectrumQuadform.evaluations,
+               **quad_counts(),
                "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
                "cg_steps": batched_cg.curvature_steps}
         f = []
         if not (out["quad_launches"] == out["quad_evaluations"]
                 and (out["quad_launches"] > 0) == quad
+                and out["quad1_launches"] == 0
                 and out["fused_launches"] == (out["cg_steps"] if fused
                                               else 0)):
             f.append(f"kernel launches: quadform {out['quad_launches']} for "
@@ -2758,21 +2804,7 @@ def main():
         w = gs.pack_weights(cfg.herm_weight / cfg.spectrum(0.5))
         return z.contiguous(), w.contiguous()
 
-    held = {"spectrum_quadform": set(), "spectrum_quadform_and_grad": set()}
-    for B, n in [(B, 1024) for B in QUAD_LANES] + [(3, 100), (5, 33)]:
-        z, w = inputs(B, n, seed=B + n)
-        held["spectrum_quadform"].add(tuple(z.shape))
-        got = gs.spectrum_quadform_cuda(z, w)
-        again = gs.spectrum_quadform_cuda(z, w)
-        want = gs.spectrum_quadform_plain(z, w)
-        rel = ((got - want).abs() / want.abs()).max().item()
-        abs_err = (got - want).abs().max().item()
-        bitwise = bool(torch.equal(got, again))
-        phase(f"phase 3 B={B} n={n}: max rel err {rel:.3e}, max abs err "
-              f"{abs_err:.3e}, rerun bitwise equal: {bitwise}")
-        if not (rel <= 1e-5 and bitwise and torch.isfinite(got).all()):
-            raise AssertionError(f"kernel disagrees at B={B}, n={n}")
-        del z, w, got, again, want
+    held = {name: set() for name in kernel_shapes()}
 
     z, w = inputs(17, 1024, seed=7)
     ct = torch.linspace(0.5, 1.5, 17, device=dev)
@@ -2789,31 +2821,48 @@ def main():
                                    atol=1e-5 * b.abs().max().item())
     del z, w, grads, zz, ww
 
+    def check_quadforms(label, z, W):
+        """spectrum_quadforms vs its plain version in float64 (max relative
+        error <= 1e-6), a bitwise rerun, each column bitwise the K = 1
+        launch of its weight (spectrum_quadform_cuda), and the first,
+        middle and last lanes bitwise their launch at B = 1; returns the
+        max abs error."""
+        B, K = z.shape[0], W.shape[0]
+        held["spectrum_quadforms"].add((B, K) + tuple(z.shape[1:]))
+        got = gs.spectrum_quadforms_cuda(z, W)
+        again = gs.spectrum_quadforms_cuda(z, W)
+        want = gs.spectrum_quadforms_plain(z.double(), W.double())
+        rel = ((got.double() - want).abs() / want.abs()).max().item()
+        abs_err = (got.double() - want).abs().max().item()
+        bitwise = bool(torch.equal(got, again))
+        # the K = 1 wrapper (the log-likelihood's) is held here too
+        k1 = all(torch.equal(got[:, k], gs.spectrum_quadform_cuda(
+            z, W[k].contiguous())) for k in range(K))
+        held["spectrum_quadform"].add(tuple(z.shape))
+        alone = all(torch.equal(got[b:b + 1], gs.spectrum_quadforms_cuda(
+            z[b:b + 1].contiguous(), W)) for b in sorted({0, B // 2, B - 1}))
+        held["spectrum_quadforms"].add((1, K) + tuple(z.shape[1:]))
+        phase(f"phase 3 {label} B={B} K={K} {tuple(z.shape[1:])}: max rel "
+              f"err {rel:.3e} (vs float64), max abs err {abs_err:.3e}; "
+              f"rerun bitwise equal {bitwise}, columns bitwise the K = 1 "
+              f"launches {k1}, lanes bitwise at B = 1 {alone}")
+        if not (rel <= 1e-6 and bitwise and k1 and alone
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"spectrum_quadforms disagrees on {label} "
+                                 f"at B={B}, K={K}")
+        return abs_err
+
     def check_theta_score(label, score_inputs, lane_counts, thetas):
-        """The quadform kernel vs plain (float64) on a slice's own θ-score
-        inputs, ``score_inputs(B, θ) -> (z, w)``, at each lane count the
-        slice gives it."""
+        """The quadforms kernel on a slice's own θ-score inputs,
+        ``score_inputs(B, θ) -> (z, W)`` with one weight per θ component,
+        at each lane count the slice gives it (:func:`check_quadforms`)."""
         worst = 0.0
         for B in lane_counts:
             for th in thetas:
-                z, w = score_inputs(B, th)
-                held["spectrum_quadform"].add(tuple(z.shape))
-                got = gs.spectrum_quadform_cuda(z, w)
-                again = gs.spectrum_quadform_cuda(z, w)
-                want = gs.spectrum_quadform_plain(z.double(), w.double())
-                rel = ((got.double() - want).abs() / want.abs()).max().item()
-                abs_err = (got.double() - want).abs().max().item()
-                bitwise = bool(torch.equal(got, again))
-                phase(f"phase 3 {label} θ-score B={B} n={z.shape[1]} "
-                      f"θ={th:.6f}: max rel err {rel:.3e} (vs float64), max "
-                      f"abs err {abs_err:.3e}, rerun bitwise equal: "
-                      f"{bitwise}")
-                if not (rel <= 1e-5 and bitwise
-                        and torch.isfinite(got).all()):
-                    raise AssertionError(f"kernel disagrees on {label}'s "
-                                         f"inputs at B={B}, θ={th}")
-                worst = max(worst, abs_err)
-                del z, w, got, again, want
+                z, W = score_inputs(B, th)
+                worst = max(worst, check_quadforms(
+                    f"{label} θ-score θ={np.round(th, 6).tolist()}", z, W))
+                del z, W
         return worst
 
     def spectral_score_inputs(prob):
@@ -2827,12 +2876,14 @@ def main():
             w1 = torch.stack([prob.sample_white(g)[0] for _ in range(B)])
             C2 = cfg.spectrum(th).reshape(-1).repeat(2)
             z = prob.x_of_white((w1, None), th)[0].reshape((B,) + grid)
-            return z, (C2 / (C2 + cfg.sigma_noise ** 2) ** 2).reshape(grid)
+            return z, (C2 / (C2 + cfg.sigma_noise ** 2) ** 2).reshape(
+                (1,) + grid)
         return make
 
     def pixel_score_inputs(prob):
         """The pixel GRF's: packed rfft2 of maps drawn by its sampler and
-        the weight w·C/((C+σ²)²n²)."""
+        the weights w·∂C/((C+σ²)²n²), ∂C = C (and −log(k+k₀)·C with the
+        tilt)."""
         cfg = prob.grf_config
 
         def make(B, th):
@@ -2841,15 +2892,40 @@ def main():
             C = cfg.spectrum(th)
             wq = cfg.herm_weight * C / ((C + cfg.sigma_noise ** 2) ** 2
                                         * cfg.n ** 2)
-            return gs.pack_rfft2(x).contiguous(), gs.pack_weights(wq)
+            d = [wq] + ([-torch.log(cfg.k + cfg.k0) * wq]
+                        if cfg.infer_tilt else [])
+            return (gs.pack_rfft2(x).contiguous(),
+                    gs.pack_weights(torch.stack(d)).contiguous())
         return make
 
     def field_rows(make, rows):
         """``make``'s inputs cut to a field rank's ``rows`` of the grid."""
         def cut(B, th):
-            z, w = make(B, th)
-            return z[:, rows].contiguous(), w[rows].contiguous()
+            z, W = make(B, th)
+            return z[:, rows].contiguous(), W[:, rows].contiguous()
         return cut
+
+    # the quadforms kernel at every lane count of QUAD_LANES, with one
+    # weight (an amplitude's score) and with two (a tilt's), and at ragged
+    # shapes with three and four: the field GRF's score weights w·∂log C/C
+    # at θ = (0.5, 0.1) on packed spectra of random fields
+    def score_weights(n, K):
+        cfg = muse_tpu_torch.models.GrfConfig(n, infer_tilt=True, device=dev)
+        C = cfg.spectrum(torch.tensor([0.5, 0.1], device=dev))
+        # two more one-signed weights for K = 3 and 4 (a weight of mixed
+        # sign would let a lane's sum cancel below its rounding)
+        d = [torch.ones_like(C), -torch.log(cfg.k + cfg.k0),
+             1.0 + 0.5 * torch.cos(cfg.k), -2.0 - torch.sin(cfg.k)]
+        return gs.pack_weights(torch.stack(d[:K]) * cfg.herm_weight
+                               / C).contiguous()
+
+    # (their white fields against weights ~k² make sums of ~1e17: the
+    # kernels line's max_abs_err comes from the slices' own inputs below)
+    for B, K, n in ([(B, K, 1024) for B in QUAD_LANES for K in (1, 2)]
+                    + [(3, 3, 100), (5, 4, 33), (6, 2, 33)]):
+        z, _ = inputs(B, n, seed=B + n + K)
+        check_quadforms("spectrum_quadforms", z, score_weights(n, K))
+        del z
 
     # slice 2's θ-score inputs at the lane counts of its fit (whole, and
     # under a sims axis of 2), and at a field axis of 2's row slices; slice
@@ -2880,7 +2956,13 @@ def main():
             field_rows(pixel_score_inputs(muse_tpu_torch.models.grf_problem(
                 n=1024, sigma_noise=0.01, device=dev)), rows),
             QUAD_SLICED_PIXEL, (0.5, 0.0))
-          for rows in (slice(0, PIXEL_ROWS15), slice(PIXEL_ROWS15, None))))
+          for rows in (slice(0, PIXEL_ROWS15), slice(PIXEL_ROWS15, None))),
+        # slice 7's pixel GRF with the tilt (16c): both components of its
+        # score in one launch on its fit's chunk
+        check_theta_score("slice 7 pixel GRF with tilt", pixel_score_inputs(
+            muse_tpu_torch.models.grf_problem(n=1024, sigma_noise=0.3,
+                                              infer_tilt=True, device=dev)),
+            (NSIMS16["c"] + 1,), (np.array([0.3, 0.1], np.float32),)))
 
     # 4. the main path at full width
     prob = grf_field_problem(n=1024, sigma_noise=0.01, device=dev)
@@ -2892,8 +2974,8 @@ def main():
                               maxsteps=20, get_covariance=True)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    launches = gs.spectrum_quadform_cuda.launches
-    evaluations = gs.SpectrumQuadform.evaluations
+    qc = quad_counts()
+    launches, evaluations = qc["quad_launches"], qc["quad_evaluations"]
     th, sig = float(res.theta[0]), float(res.sigma[0])
     steps = len(res.history)
     h_chunks = 1                      # get_H: one chunk of 10 sims × ±ε
@@ -2902,31 +2984,49 @@ def main():
           f"{sig_F:.6f}; |θ̂−MLE| {abs(th - mle):.6f} (< {bound:.6f}); "
           f"σ/σ_F {sig / sig_F:.4f}")
     phase(f"phase 4 launches: {launches} kernel launches for {evaluations} "
-          f"batched log-likelihood evaluations = {steps} muse_step chunks "
-          f"+ {h_chunks} get_H chunk → "
-          f"{launches / (steps + h_chunks):.2f} per chunk")
+          f"batched θ-score evaluations (the analytic score's "
+          f"spectrum_quadforms) = {steps} muse_step chunks + {h_chunks} "
+          f"get_H chunk → {launches / (steps + h_chunks):.2f} per chunk; "
+          f"{qc['quad1_launches']} launches of the log-likelihood's "
+          f"quadform")
     if not (np.isfinite(th) and np.isfinite(sig)):
         raise AssertionError("non-finite θ̂ or σ")
     if not abs(th - mle) < bound:
         raise AssertionError(f"θ̂ {th} vs MLE {mle}: off by more than {bound}")
     if not 0.5 < sig / sig_F < 2:
         raise AssertionError(f"σ {sig} vs σ_F {sig_F}")
-    if not (launches > 0 and launches == evaluations == steps + h_chunks):
+    if not (launches > 0 and launches == evaluations == steps + h_chunks
+            and qc["quad1_launches"] == 0):
         raise AssertionError(f"{launches} launches, {evaluations} "
                              f"evaluations, {steps + h_chunks} chunks")
 
-    # 5. times
+    # 5. times: kernel 1 at B=101 × 1024² with one weight (an amplitude's
+    # θ-score) and with two (a tilt's), in turns, beside the plain versions
     z, w = inputs(101, 1024, seed=5)
+    Ws = {1: w[None], 2: score_weights(1024, 2)}
     ms_plain = [cuda_ms(lambda: gs.spectrum_quadform_plain(z, w))]
-    ms_kernel = [cuda_ms(lambda: gs.spectrum_quadform_cuda(z, w))
-                 for _ in range(2)]
+    ms_kernel = {1: [], 2: []}
+    for K in (1, 2, 2, 1):
+        ms_kernel[K].append(cuda_ms(
+            lambda K=K: gs.spectrum_quadforms_cuda(z, Ws[K])))
     ms_plain.append(cuda_ms(lambda: gs.spectrum_quadform_plain(z, w)))
-    ms, plain_ms = statistics.median(ms_kernel), statistics.median(ms_plain)
+    ms_plain2 = [cuda_ms(lambda: gs.spectrum_quadforms_plain(z, Ws[2]))
+                 for _ in range(2)]
+    ms, plain_ms = statistics.median(ms_kernel[1]), statistics.median(ms_plain)
+    ms_k2, plain_ms_k2 = (statistics.median(ms_kernel[2]),
+                          statistics.median(ms_plain2))
+    L = z.shape[1] * z.shape[2]
+    bound_k2, by_k2 = least_ms((101 * L + 2 * L + 2 * 101) * 4, 5 * 101 * L)
     gbps = (z.numel() + w.numel()) * 4 / (ms * 1e-3) / 1e9
-    del z, w
-    phase(f"phase 5 [{card}] spectrum_quadform B=101 n=1024: kernel {ms:.4f} "
-          f"ms ({gbps:.0f} GB/s), plain {plain_ms:.4f} ms "
-          f"(runs {ms_kernel}, {ms_plain})")
+    del z, w, Ws
+    phase(f"phase 5 [{card}] spectrum_quadforms B=101 n=1024: K = 1 {ms:.4f} "
+          f"ms ({gbps:.0f} GB/s), plain {plain_ms:.4f} ms; K = 2 "
+          f"{ms_k2:.4f} ms ({ms_k2 / ms:.3f}× K = 1; bound {bound_k2:.4f} ms "
+          f"by {by_k2}, {bound_k2 / ms_k2:.0%} of it), plain "
+          f"{plain_ms_k2:.4f} ms (runs {ms_kernel}, {ms_plain}, {ms_plain2})")
+    if not ms_k2 <= 1.2 * ms:
+        raise AssertionError(f"spectrum_quadforms at K = 2 takes {ms_k2} ms, "
+                             f"more than 1.2× its {ms} ms at K = 1")
 
     spec = ThetaSpec.from_example(0.5)
     comp = CompiledProblem(prob, spec, np.array([res.theta[0]]))
@@ -2946,6 +3046,40 @@ def main():
           f"+ J + H {t_fit:.2f} s, of which the fit's iterations "
           f"{[round(h['t'], 4) for h in res.history]} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 5b. the field GRF's batched θ-score at 101 lanes × 1024², route by
+    # route (scripts/theta_score_bench.py): the analytic score through the
+    # kernel and through the plain quadforms, and vmap(grad(log_like))
+    # through the kernel's forward (the route before the analytic score)
+    # and through the plain einsum's autograd
+    from muse_tpu_torch.scripts import theta_score_bench
+    scores = theta_score_bench.run(n=1024, lanes=NSIMS4_GRF + 1,
+                                   sigma_noise=0.01, device=dev)
+    theta_score_bench.report(scores, 1024, NSIMS4_GRF + 1,
+                             emit=lambda line: phase(f"phase 5b [{card}] "
+                                                     f"{line}"))
+    want_launches = {"analytic_kernel": 1, "analytic_plain": 0,
+                     "grad_kernel": 1, "grad_plain": 0}
+    scores5b = {k: {m: r[m] for m in ("ms", "profile_ms", "launches",
+                                      "rel_err", "rel_vs_grad")}
+                for k, r in scores.items()}
+    ak, ap = scores5b["analytic_kernel"], scores5b["analytic_plain"]
+    fastest_grad = min(scores5b["grad_kernel"]["ms"],
+                       scores5b["grad_plain"]["ms"])
+    phase(f"phase 5b [{card}] batched θ-score ms: analytic kernel "
+          f"{ak['ms']:.4f} < analytic plain {ap['ms']:.4f} < vmap(grad) "
+          f"{fastest_grad:.4f}: {ak['ms'] < ap['ms'] < fastest_grad}")
+    # each route within 1e-5 of float64 and of the grad_kernel route,
+    # relative to the score's two cancelling terms (phase 15b's tolerance:
+    # the plain float32 sums' own rounding); the kernel route, whose sums
+    # are trees, within 1e-6
+    if not ({k: r["launches"] for k, r in scores5b.items()} == want_launches
+            and all(r["rel_err"] <= 1e-5 and r["rel_vs_grad"] <= 1e-5
+                    for r in scores5b.values())
+            and ak["rel_err"] <= 1e-6
+            and ak["ms"] < ap["ms"] < fastest_grad):
+        raise AssertionError(f"phase 5b: the θ-score routes: {scores5b}")
+    del scores, ak, ap
 
     launches_slice1 = launches
     del comp, Z
@@ -3052,8 +3186,7 @@ def main():
                              max_batch=MAX_BATCH2, compiled=comp2)
         torch.cuda.synchronize()
         t_h2 = time.perf_counter() - t0 - t_fit2 - t_j2
-        counts = {"quad_launches": gs.spectrum_quadform_cuda.launches,
-                  "quad_evaluations": gs.SpectrumQuadform.evaluations,
+        counts = {**quad_counts(),
                   "fused_launches": gs.spectrum_quadform_and_grad_cuda.launches,
                   "cg_steps": batched_cg.curvature_steps,
                   "muse_step_white_calls": white_calls[0]}
@@ -3079,7 +3212,8 @@ def main():
                                  f"{sig2 / sig_F2}")
         if not (counts["muse_step_white_calls"] > 0 and
                 counts["quad_launches"] == counts["quad_evaluations"]
-                == counts["muse_step_white_calls"]):
+                == counts["muse_step_white_calls"]
+                and counts["quad1_launches"] == 0):
             raise AssertionError(f"quadform launches do not match the "
                                  f"θ-score evaluations: {counts}")
         if not (counts["fused_launches"] > 0 and
@@ -3168,13 +3302,9 @@ def main():
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
-    for name, wrapper in (
-            ("spectrum_quadform", gs.spectrum_quadform_cuda),
-            ("spectrum_quadform_and_grad", gs.spectrum_quadform_and_grad_cuda)):
-        missed = sorted(wrapper.shapes - held[name])
-        phase(f"{name}: launched at {len(wrapper.shapes)} shapes, lane "
-              f"counts at n=1024 "
-              f"{sorted(s[0] for s in wrapper.shapes if s[1] == 1024)}; "
+    for name, shapes in kernel_shapes().items():
+        missed = sorted(shapes - held[name])
+        phase(f"{name}: launched at {len(shapes)} shapes: {sorted(shapes)}; "
               f"not held against the plain version: {missed}")
         if missed:
             raise AssertionError(f"{name} ran at shapes that no phase held "
@@ -3231,6 +3361,7 @@ def main():
         "max_abs_err": abs_err_path,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": quad_bound,
         "bound_by": quad_by, "library_ms": library_ms,
+        "ms_k2": ms_k2, "plain_ms_k2": plain_ms_k2, "bound_ms_k2": bound_k2,
         "launches_by_path": by_path["spectrum_quadform"]}, {
         "name": "spectrum_quadform_and_grad", "route": "cuda",
         "source": "muse_tpu_torch/csrc/spectrum_quadform.cu",

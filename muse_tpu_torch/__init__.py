@@ -22,8 +22,9 @@ adds the remaining field-model families: the lensing model
 bandpower model with a vector θ (``models.bandpower_problem``) and the
 pixel-space whitened GRF (``models.grf_problem``). Both TPU
 kernels of the JAX package have their CUDA counterparts in
-``csrc/spectrum_quadform.cu``: the spectrum quadform (the θ-scores) and the
-fused quadform + half-gradient (the spectral GRF's PCG operator).
+``csrc/spectrum_quadform.cu``: the spectrum quadforms (every θ component
+of a GRF θ-score from one read of z) and the fused quadform +
+half-gradient (the spectral GRF's PCG operator).
 
 Slice 5 adds the mesh (``parallel``): one process per device over
 ``torch.distributed``, the sims axis for every problem and every entry
@@ -49,6 +50,11 @@ Slice 8 ports the repo's measuring programs: ``python -m
 muse_tpu_torch.bench`` (the headline benchmark of ``bench.py``) and the
 scripts of ``muse_tpu_torch.scripts`` (the kernel A/B, the noise modes and
 the lensing calibration study).
+
+Slice 9 gives the quadform kernel K weights in one pass
+(``ops.spectrum_quadforms``): the GRF θ-scores take every θ component
+from one launch, and ``grf_field_problem``'s θ-score is analytic (no
+backward); ``scripts.theta_score_bench`` times its routes.
 """
 
 import torch as _torch

@@ -11,18 +11,20 @@ C_k(θ) = e^θ (k+k0)^(−γ) of a 2D field z from x = z + σ·noise. Its latent
 IS the field, and its log-likelihood's Fourier-space term
 Σ_k w_k|ẑ_k|²/C_k runs in the hand-written CUDA kernel of
 ``ops/grf_spectrum.py`` on a card. The MAP is the Wiener filter
-ẑ_k = C x̂_k/(C+σ²), batched over lanes.
+ẑ_k = C x̂_k/(C+σ²), batched over lanes, and the θ-score is analytic at
+any z: one ``spectrum_quadforms`` launch per batched evaluation.
 
 ``grf_problem`` is the same model with the WHITE field u as its latent,
 z = S_θ u, in pixel space: its MAP enters and leaves the packed-spectral
 PCG through cuFFT, and its analytic θ-score ½Σ w|x̂|²·∂C/(C+σ²)²/n² is one
-``spectrum_quadform`` launch per batched evaluation.
+``spectrum_quadforms`` launch per batched evaluation, every θ component's
+weight in the same pass.
 
 ``grf_spectral_problem`` carries x and the white latent in the isometric
 packing ṽ = pack(√w/n · rfft2(v)), where every operator is diagonal: its
 MAP is a batched PCG whose operator and curvature run in the fused
-``spectrum_quadform_and_grad`` kernel, and its analytic θ-score in the
-``spectrum_quadform`` kernel.
+``spectrum_quadform_and_grad`` kernel, and its analytic θ-score in one
+``spectrum_quadforms`` launch.
 
 Transforms are ``torch.fft`` with the default "backward" norm, as
 ``jnp.fft`` uses. Every tensor lives on the configuration's device, in
@@ -221,6 +223,23 @@ def _set_field(prob, mesh, cols, size: int):
         prob.field_size = size
 
 
+def _dlogC(cfg) -> torch.Tensor:
+    """∂log C/∂θ_α on the rfft grid, one (n, m) plane per θ component: 1 for
+    the log-amplitude and, with ``infer_tilt``, −log(k+k₀) for the tilt."""
+    d = [torch.ones_like(cfg.k)]
+    if cfg.infer_tilt:
+        d.append(-torch.log(cfg.k + cfg.k0))
+    return torch.stack(d)
+
+
+def _theta_shaped(g: torch.Tensor, theta) -> torch.Tensor:
+    """The (ntheta,) score ``g`` in θ's own shape: a scalar for a scalar
+    θ."""
+    scalar = (theta.dim() if isinstance(theta, torch.Tensor)
+              else np.ndim(theta)) == 0
+    return g[0] if scalar else g
+
+
 class GrfConfig:
     """Static configuration for a GRF amplitude(/tilt) problem.
 
@@ -309,8 +328,8 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         the generic batched L-BFGS on the log-likelihood.
       * ``grad_theta``: the analytic score at the exact MAP, the
         cancellation-free sum ½ Σ w p ∂C/(C+σ²)², p = |x̂|²/n², through the
-        ``spectrum_quadform`` kernel: one launch per batched evaluation and
-        θ component.
+        ``spectrum_quadforms`` kernel: one launch per batched evaluation,
+        with one weight per θ component.
       * ``fft_mode``: ``"auto"`` and ``"fft"`` are ``torch.fft`` (under a
         field axis, on the gathered field). The einsum DFT (``"matmul"``)
         exists in the JAX package for sharded layouts that XLA's FFT
@@ -340,7 +359,7 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     fixes the device.
     """
     from ..ops.grf_spectrum import (pack_rfft2, pack_weights,
-                                    spectrum_quadform)
+                                    spectrum_quadforms)
 
     if solver not in ("cg", "direct", "lbfgs"):
         raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
@@ -368,7 +387,7 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     L = 2 * n * nr
     grid = (nrows, 2 * nr)   # the kernels' view of this rank's packed rows
     sqw_n = torch.sqrt(cfg.herm_weight) / n   # isometric pack scale
-    neg_logk = -torch.log(cfg.k + cfg.k0)
+    dlogC = _dlogC(cfg)
 
     def gather(V, cols, size):
         """Every lane's whole field from this rank's columns (V itself
@@ -416,19 +435,14 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         residual's significant bits to float32 FFT rounding; this form has
         a per-mode relative error ~eps. It assumes that the latent solve
         reached the Wiener MAP (exact for ``solver="direct"``, to the
-        solver's tolerance for ``"cg"``)."""
+        solver's tolerance for ``"cg"``). Every θ component's sum comes from
+        one ``spectrum_quadforms`` call (one weight each)."""
         C = cfg.spectrum(theta)
         wq = cfg.herm_weight * C / ((C + s2) ** 2 * (n * n))
         # this rank's rows of x̂ (all of them without a field axis)
         z = pack_rfft2(x)[None, rows]
-        g0 = 0.5 * spectrum_quadform(z, pack_weights(wq)[rows])[0]
-        if not cfg.infer_tilt:
-            scalar = (theta.dim() if isinstance(theta, torch.Tensor)
-                      else np.ndim(theta)) == 0
-            return g0 if scalar else g0.reshape(1)
-        g1 = 0.5 * spectrum_quadform(
-            z, pack_weights(neg_logk * wq)[rows])[0]
-        return torch.stack([g0, g1])
+        g = 0.5 * spectrum_quadforms(z, pack_weights(dlogC * wq)[:, rows])[0]
+        return _theta_shaped(g, theta)
 
     # batched MAP solvers over the whitened latent; the normal equations
     # are (I + S_θᵀS_θ/σ²) u = S_θᵀ x / σ², with S_θᵀS_θ = C_k
@@ -512,10 +526,14 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                            + Σ_k w_k log C_k ] + const
 
     The quadform term runs through :func:`spectrum_quadform` (the CUDA
-    kernel on a card). ``use_pallas=False`` sends it through
-    :func:`spectrum_quadform_plain` instead, on the card too, with no
-    kernel launch: the end-to-end A/B switch of the JAX package's argument
-    of the same name (which there picks the Pallas kernel). ``x_obs`` (an
+    kernel on a card). The θ-score is analytic, at any z (the
+    ``grad_theta_log_like`` hook; muse_tpu takes ``jax.grad`` of the same
+    log-likelihood): ½Σ w d_α|ẑ|²/C/n² − ½Σ w d_α with d_α = ∂log C/∂θ_α,
+    every component from one :func:`spectrum_quadforms` launch per batched
+    evaluation and no backward. ``use_pallas=False`` sends both through
+    the plain versions instead, on the card too, with no kernel launch:
+    the end-to-end A/B switch of the JAX package's argument of the same
+    name (which there picks the Pallas kernel). ``x_obs`` (an
     (n, n) array or tensor) is the data; without it the data are drawn at
     ``theta_true`` from ``data_seed``. ``config``, when given, fixes the
     device.
@@ -526,12 +544,16 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     """
     from ..ops.grf_spectrum import (pack_rfft2, pack_weights,
                                     spectrum_quadform,
-                                    spectrum_quadform_plain)
+                                    spectrum_quadform_plain,
+                                    spectrum_quadforms,
+                                    spectrum_quadforms_plain)
 
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, False, device=device)
     n = cfg.n
     s2 = cfg.sigma_noise ** 2
     dev = cfg.device
+    dlogC = _dlogC(cfg)
+    w_dlogC = torch.sum(cfg.herm_weight * dlogC, dim=(-2, -1))
 
     def sample_x_z(gen, theta):
         # draw order as in JAX: the white field u first, then the noise
@@ -542,6 +564,8 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         return x, z
 
     _quadform = spectrum_quadform if use_pallas else spectrum_quadform_plain
+    _quadforms = (spectrum_quadforms if use_pallas
+                  else spectrum_quadforms_plain)
 
     def log_like(x, z, theta):
         C = cfg.spectrum(theta)
@@ -550,6 +574,18 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         logdet = torch.sum(cfg.herm_weight * torch.log(C))
         r = x - z
         return -0.5 * (torch.sum(r * r) / s2 + quad + logdet)
+
+    def grad_theta(x, z, theta):
+        """Analytic ∂θ log_like at any z (the ∇θ_logLike override): with
+        d_α = ∂log C/∂θ_α (1, and −log(k+k₀) for the tilt),
+          g_α = ½ Σ w d_α |ẑ|²/C / n² − ½ Σ w d_α,
+        every component's quadform from one ``spectrum_quadforms`` call:
+        one kernel launch per batched evaluation and no backward. For the
+        amplitude the weight is log_like's own w/C."""
+        C = cfg.spectrum(theta)
+        q = _quadforms(pack_rfft2(z)[None],
+                       pack_weights(cfg.herm_weight * dlogC / C))[0]
+        return _theta_shaped(0.5 * q / n ** 2 - 0.5 * w_dlogC, theta)
 
     def log_prior(theta):
         th = torch.atleast_1d(cfg.theta_tensor(theta))
@@ -571,7 +607,8 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                              device=dev)
 
     prob = SimpleMuseProblem(x_obs, sample_x_z, log_like, log_prior,
-                             custom_zhat=zhat_wiener, device=dev)
+                             custom_zhat=zhat_wiener,
+                             grad_theta_log_like=grad_theta, device=dev)
     prob.name = "grf_field_problem"
     prob.grf_config = cfg
     return prob
@@ -607,7 +644,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         ``custom_zhat``, so the MAPs take the generic batched L-BFGS
         (``ops/lbfgs.py``) on the log-likelihood.
       * ``grad_theta``: the analytic score ½Σ x̃²·∂C/(C+σ²)² through the
-        ``spectrum_quadform`` kernel, one launch per batched evaluation.
+        ``spectrum_quadforms`` kernel, one launch per batched evaluation
+        with one weight per θ component.
 
     ``x_obs`` may be a real (n, n) field (packed on the host in float64)
     or an already packed (L,) vector; without it the data are drawn at
@@ -625,7 +663,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     every sim is the one drawn without a mesh; the data are drawn whole
     too. ``solver="lbfgs"`` cannot take a field axis.
     """
-    from ..ops.grf_spectrum import spectrum_quadform
+    from ..ops.grf_spectrum import spectrum_quadforms
 
     if noise not in ("marginal", "direct", "fft"):
         raise ValueError(
@@ -650,7 +688,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     grid = (rows, 2 * nr)
     sqw_n = torch.sqrt(cfg.herm_weight) / n
     sqw_n_host = np.sqrt(np.asarray(_host(cfg.herm_weight), np.float64)) / n
-    logk_tiled = torch.log(cfg.k + cfg.k0).reshape(-1).repeat(2)[cols]
+    # ∂log C/∂θ per θ component, tiled over (re, im) and cut to this rank
+    dlogC2 = _dlogC(cfg).flatten(1).repeat(1, 2)[:, cols]
     coeffs = _herm_white_tensors(n, dev)
 
     def _C2(theta):
@@ -709,18 +748,13 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         return -torch.sum(th ** 2) / (2 * prior_std ** 2)
 
     def grad_theta(xt, ut, theta):
-        """Analytic ∂θ log_like at the exact MAP: ½Σ x̃²·∂C/(C+σ²)², one
-        spectrum quadform per θ component."""
+        """Analytic ∂θ log_like at the exact MAP: ½Σ x̃²·∂C/(C+σ²)², every
+        θ component's sum from one ``spectrum_quadforms`` call."""
         C2 = _C2(theta)
         wq = C2 / (C2 + s2) ** 2
-        z = xt.reshape((1,) + grid)
-        g0 = 0.5 * spectrum_quadform(z, wq.reshape(grid))[0]
-        if not cfg.infer_tilt:
-            scalar = (theta.dim() if isinstance(theta, torch.Tensor)
-                      else np.ndim(theta)) == 0
-            return g0 if scalar else g0.reshape(1)
-        g1 = 0.5 * spectrum_quadform(z, (-logk_tiled * wq).reshape(grid))[0]
-        return torch.stack([g0, g1])
+        g = 0.5 * spectrum_quadforms(xt.reshape((1,) + grid),
+                                     (dlogC2 * wq).reshape((-1,) + grid))[0]
+        return _theta_shaped(g, theta)
 
     def zhat_cg(xs, Z0, th_flat, atol):
         """Batched PCG with the diagonal operator A = 1 + C/σ²."""

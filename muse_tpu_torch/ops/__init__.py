@@ -1,9 +1,12 @@
 from .cg import BatchedCgResult, batched_cg
-from .grf_spectrum import (SpectrumQuadform, pack_rfft2, pack_weights,
-                           spectrum_quadform, spectrum_quadform_and_grad,
+from .grf_spectrum import (SpectrumQuadform, SpectrumQuadforms, pack_rfft2,
+                           pack_weights, spectrum_quadform,
+                           spectrum_quadform_and_grad,
                            spectrum_quadform_and_grad_cuda,
                            spectrum_quadform_and_grad_plain,
-                           spectrum_quadform_cuda, spectrum_quadform_plain)
+                           spectrum_quadform_cuda, spectrum_quadform_plain,
+                           spectrum_quadforms, spectrum_quadforms_cuda,
+                           spectrum_quadforms_plain)
 from .lbfgs import LbfgsResult, batched_lbfgs
 from .newton_cg import NewtonCgResult, batched_newton_cg
 from .varpro import VarproResult, batched_varpro
@@ -14,4 +17,6 @@ __all__ = ["BatchedCgResult", "batched_cg", "LbfgsResult", "batched_lbfgs",
            "pack_weights", "spectrum_quadform", "spectrum_quadform_and_grad",
            "spectrum_quadform_and_grad_cuda",
            "spectrum_quadform_and_grad_plain", "spectrum_quadform_cuda",
-           "spectrum_quadform_plain"]
+           "spectrum_quadform_plain", "SpectrumQuadforms",
+           "spectrum_quadforms", "spectrum_quadforms_cuda",
+           "spectrum_quadforms_plain"]

@@ -95,9 +95,12 @@ def load_library() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.muse_spectrum_quadform_slab.argtypes = []
     lib.muse_spectrum_quadform_slab.restype = ll
-    lib.muse_spectrum_quadform_f32.argtypes = [vp, vp, vp, vp, ll, ll,
-                                               ctypes.c_int, vp]
-    lib.muse_spectrum_quadform_f32.restype = ctypes.c_int
+    lib.muse_spectrum_quadforms_max_weights.argtypes = []
+    lib.muse_spectrum_quadforms_max_weights.restype = ctypes.c_int
+    lib.muse_spectrum_quadforms_f32.argtypes = [vp, vp, vp, vp, ll,
+                                                ctypes.c_int, ll,
+                                                ctypes.c_int, vp]
+    lib.muse_spectrum_quadforms_f32.restype = ctypes.c_int
     lib.muse_spectrum_quadform_and_grad_f32.argtypes = [vp, vp, vp, vp, vp,
                                                         ll, ll, ctypes.c_int,
                                                         vp]

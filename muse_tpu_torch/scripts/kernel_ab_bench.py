@@ -1,15 +1,17 @@
 """End-to-end A/B of the CUDA quadform on the field GRF's muse step.
 
 The port of scripts/pallas_ab_bench.py. ``grf_field_problem`` is the one
-model family whose log-likelihood evaluates the spectrum quadform (value
-through the kernel, z- and θ-gradients through its plain backward): with
-``use_pallas=True`` the CUDA kernel launches once per batched θ-score,
-with ``use_pallas=False`` the plain torch quadform runs on the same
-device. This times the whole keyed ``muse_step`` both ways through
-``bench.time_step``, in turns (kernel, plain, plain, kernel), and checks
-the launch counters: on a card at least one kernel launch per step with
-the kernel and none with the plain version (on the CPU the kernel never
-launches; the quadform's evaluations are counted instead).
+model family whose log-likelihood evaluates the spectrum quadform; its
+per-lane θ-score in the muse step is analytic, ½Q/n² − ½Σw, with Q from
+one ``spectrum_quadforms`` evaluation per batched score and no backward.
+With ``use_pallas=True`` that evaluation launches the CUDA kernel once
+per batched θ-score; with ``use_pallas=False`` the plain torch quadforms
+run on the same device. This times the whole keyed ``muse_step`` both
+ways through ``bench.time_step``, in turns (kernel, plain, plain,
+kernel), and checks the counters: on a card one kernel launch per
+evaluation, at least one evaluation per step with the kernel and none
+with the plain version (on the CPU the kernel never launches; the
+quadforms' evaluations are counted instead).
 
 Run:  python -m muse_tpu_torch.scripts.kernel_ab_bench [--n 1024 --nsims 16]
       (add --device cpu to run on the CPU, at a small --n)
@@ -42,7 +44,7 @@ def time_ab(n, nsims, reps=5, device="cuda"):
     """Each route's (median wall, spread, kernel launches, quadform
     evaluations), timed in turns (kernel, plain, plain, kernel): a route's
     wall is the mean of its two medians, its spread the larger of its two.
-    Raises unless the kernel route evaluated the quadform in every step,
+    Raises unless the kernel route evaluated the quadforms in every step,
     launching it once per evaluation on a card and never on the CPU, and
     the plain route never evaluated it."""
     dev = resolve_device(device)
@@ -52,11 +54,11 @@ def time_ab(n, nsims, reps=5, device="cuda"):
     for use_kernel in (True, False, False, True):
         # the counters' increase over the timed steps (a caller's own
         # counts keep running)
-        launches = -gs.spectrum_quadform_cuda.launches
-        evaluations = -gs.SpectrumQuadform.evaluations
+        launches = -gs.spectrum_quadforms_cuda.launches
+        evaluations = -gs.SpectrumQuadforms.evaluations
         wall, spread = bench.time_step(*steps[use_kernel], reps=reps)
-        launches += gs.spectrum_quadform_cuda.launches
-        evaluations += gs.SpectrumQuadform.evaluations
+        launches += gs.spectrum_quadforms_cuda.launches
+        evaluations += gs.SpectrumQuadforms.evaluations
         got[use_kernel].append((wall, spread, launches, evaluations))
     out = {}
     for use_kernel, runs in got.items():

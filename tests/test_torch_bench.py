@@ -248,7 +248,7 @@ def test_kernel_ab_bench_runs_and_counts(capsys):
                                 CPU])
     text = capsys.readouterr().out
     assert "cuda/plain = " in text and "s/muse_step" in text
-    # on the CPU the kernel route runs the quadform's plain version: its
+    # on the CPU the kernel route runs the quadforms' plain version: its
     # evaluations are counted, one per batched θ-score, and nothing launches
     assert out["cuda"]["evaluations"] >= 12 and out["cuda"]["launches"] == 0
     assert out["plain"]["evaluations"] == out["plain"]["launches"] == 0

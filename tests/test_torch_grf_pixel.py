@@ -148,20 +148,20 @@ def test_zhat_cg_matches_direct_and_jax(n, tilt):
 
 
 def test_theta_score_is_one_quadform_evaluation_per_batch():
-    """vmap over lanes folds the per-lane analytic score into one quadform
-    call (one kernel launch on a card); with the tilt, one per θ
-    component."""
-    for tilt, per_batch in ((False, 1), (True, 2)):
+    """vmap over lanes folds the per-lane analytic score into one quadforms
+    call (one kernel launch on a card), with the tilt too: both θ
+    components' weights in one pass."""
+    for tilt in (False, True):
         _, pt = _pair(16, tilt)
         th0 = _theta(tilt)
         tc = TCompiled(pt, TSpec.from_example(th0),
                        np.atleast_1d(th0).astype(np.float64))
         W = tc.sample_whites([1, 2, 3, 4, 5])
         th = _t(np.atleast_1d(th0))
-        before = tp.SpectrumQuadform.evaluations
+        before = tp.SpectrumQuadforms.evaluations
         tc.muse_step_white(th, th, W, torch.zeros((5, tc.nz)),
                            torch.arange(5), 1e-2)
-        assert tp.SpectrumQuadform.evaluations - before == per_batch
+        assert tp.SpectrumQuadforms.evaluations - before == 1
 
 
 def test_what_is_left_out_raises_naming_the_roadmap():

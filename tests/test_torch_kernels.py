@@ -130,6 +130,74 @@ def test_wrapper_checks(cuda):
                                   .transpose(1, 2), w)
 
 
+def _weights(K, n, device, seed=1, rows=None):
+    """K (rows, 2m) weights: the amplitude's positive weight and, for
+    K > 1, weights of either sign (a tilt's −log(k+k₀)·w is negative)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    m2 = 2 * (n // 2 + 1)
+    W = torch.rand((K, n, m2), generator=g, device=device) + 0.5
+    W[1::2] *= -1.0
+    return W if rows is None else W[:, n - rows:].contiguous()
+
+
+def test_quadforms_cpu_tensors_take_the_plain_version():
+    z, _ = _inputs(3, 8, "cpu")
+    W = _weights(2, 8, "cpu")
+    before = tp.spectrum_quadforms_cuda.launches
+    assert torch.equal(tp.spectrum_quadforms(z, W),
+                       tp.spectrum_quadforms_plain(z, W))
+    assert tp.spectrum_quadforms_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tp.spectrum_quadforms_cuda(z, W)
+
+
+# every (B, K) a θ-score launches at 1024²: the amplitude's lane counts at
+# K = 1 (fit chunks of 128, 101 and 1, the stencils' 20 and 40, the A/B's
+# 17, a sims axis's 64), the tilt's at K = 2 (the calibration study's fit
+# chunk of 101 and the tests' widths), a field axis's rows (512 of 1024)
+# at 128, 101 and 20 lanes; then ragged shapes and K = 3, 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,n,rows", [
+    (1, 1, 1024, None), (17, 1, 1024, None), (20, 1, 1024, None),
+    (40, 1, 1024, None), (64, 1, 1024, None), (101, 1, 1024, None),
+    (128, 1, 1024, None), (101, 2, 1024, None), (5, 2, 1024, None),
+    (1, 2, 1024, None), (128, 1, 1024, 512), (101, 1, 1024, 512),
+    (20, 1, 1024, 512), (3, 1, 100, None), (5, 3, 33, None),
+    (6, 4, 100, None), (7, 2, 33, 20)])
+def test_quadforms_kernel_matches_plain(cuda, B, K, n, rows):
+    """Within 1e-6 relative of float64, bitwise on a rerun, bitwise equal to
+    K launches at K = 1, and a lane's value the same alone (B = 1) as in
+    the batch."""
+    z, _ = _inputs(B, n, cuda, seed=B + n, rows=rows)
+    W = _weights(K, n, cuda, rows=rows)
+    got = tp.spectrum_quadforms_cuda(z, W)
+    assert got.shape == (B, K)
+    want = tp.spectrum_quadforms_plain(z.double(), W.double())
+    rel = ((got.double() - want).abs() / want.abs()).max().item()
+    assert rel <= 1e-6, rel
+    assert torch.equal(got, tp.spectrum_quadforms_cuda(z, W))
+    for k in range(K):
+        assert torch.equal(got[:, k], tp.spectrum_quadform_cuda(
+            z, W[k].contiguous()))
+    for b in sorted({0, B // 2, B - 1}):
+        assert torch.equal(got[b:b + 1], tp.spectrum_quadforms_cuda(
+            z[b:b + 1].contiguous(), W))
+
+
+@pytest.mark.cuda
+def test_quadforms_vmap_is_one_launch_and_checks(cuda):
+    z, _ = _inputs(7, 64, cuda)
+    W = _weights(2, 64, cuda)
+    before = tp.spectrum_quadforms_cuda.launches
+    got = vmap(lambda v: tp.spectrum_quadforms(v[None], W)[0])(z)
+    assert tp.spectrum_quadforms_cuda.launches - before == 1
+    assert torch.equal(got, tp.spectrum_quadforms_cuda(z, W))
+    with pytest.raises(ValueError, match="weights"):
+        tp.spectrum_quadforms_cuda(z, _weights(5, 64, cuda))
+    with pytest.raises(ValueError):
+        tp.spectrum_quadforms_cuda(z, W[0])
+
+
 @pytest.mark.cuda
 def _band_weight(n, nbands, device, sigma_noise=0.01):
     """The bandpower PCG's operator A = 1 + P0·exp(θ_band)/σ² on the (n, 2m)

@@ -328,17 +328,18 @@ def test_muse_step_white_equals_muse_step(noise):
 
 
 def test_theta_score_is_one_quadform_evaluation_per_batch():
-    """vmap over lanes folds the per-lane θ-score into one quadform call
-    (one kernel launch on a card); with the tilt, one per θ component."""
-    for tilt, per_batch in ((False, 1), (True, 2)):
+    """vmap over lanes folds the per-lane θ-score into one quadforms call
+    (one kernel launch on a card), with the tilt too: both θ components'
+    weights in one pass."""
+    for tilt in (False, True):
         pj, pt = _pair(tilt=tilt)
         _, tc = _compiled(pj, pt, tilt)
         W = tc.sample_whites(sim_seeds(1, B), x_only=True)
         th = torch.as_tensor(np.atleast_1d(_theta(0.3, tilt)))
-        before = tp.SpectrumQuadform.evaluations
+        before = tp.SpectrumQuadforms.evaluations
         tc.muse_step_white(th, th, W, torch.zeros((B, tc.nz)),
                            torch.arange(B), 1e-2)
-        assert tp.SpectrumQuadform.evaluations - before == per_batch
+        assert tp.SpectrumQuadforms.evaluations - before == 1
 
 
 # ------------------------------------------------------------------ #
