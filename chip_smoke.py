@@ -314,9 +314,10 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      steps of the runs whose PCG runs through it (none elsewhere); at
      bench.py's σ_noise = 1 those PCGs take no step.
 
-The wrappers record every input shape they launch at; after phase 17 the
-run fails if a kernel ran at a shape that phases 3 and 6 did not hold
-against the plain version, and phase 15 checks its ranks' shapes alike.
+A recorder in place of each kernel wrapper keeps every input shape
+launched (``record_kernel_shapes``); after phase 17 the run fails if a
+kernel ran at a shape that phases 3 and 6 did not hold against the plain
+version, and phase 15 checks its ranks' shapes alike.
 Every path's quadform count is kernel 1's launches through
 ``spectrum_quadforms_cuda`` against ``SpectrumQuadforms``' evaluations,
 and no path launches the K = 1 wrapper of the log-likelihood.
@@ -409,13 +410,49 @@ def quad_counts():
             "quad1_launches": gs.spectrum_quadform_cuda.launches}
 
 
-def kernel_shapes():
-    """Every input shape each kernel wrapper launched at in this process."""
+#: every input shape each kernel wrapper launched at in this process, by
+#: kernel, once ``record_kernel_shapes`` has run
+_SHAPES = {}
+
+
+def record_kernel_shapes():
+    """Put a recorder in place of each kernel wrapper of
+    ``ops/grf_spectrum.py`` (once a process), so that ``kernel_shapes``
+    holds every input shape launched: (B, n, 2m), and (B, K, n, 2m) for
+    the K-weight quadforms. The module's own calls go through its globals,
+    so every launch passes the recorder; the recorder carries the
+    wrapper's ``launches``, which the wrapper counts through the same
+    global."""
+    if _SHAPES:
+        return
+    import functools
+
     from muse_tpu_torch.ops import grf_spectrum as gs
-    return {"spectrum_quadform": gs.spectrum_quadform_cuda.shapes,
-            "spectrum_quadforms": gs.spectrum_quadforms_cuda.shapes,
-            "spectrum_quadform_and_grad":
-                gs.spectrum_quadform_and_grad_cuda.shapes}
+
+    def plain(z, w):
+        return tuple(z.shape)
+
+    def stacked(z, W):
+        return (z.shape[0], W.shape[0]) + tuple(z.shape[1:])
+
+    for name, key in (("spectrum_quadform", plain),
+                      ("spectrum_quadforms", stacked),
+                      ("spectrum_quadform_and_grad", plain)):
+        fn = getattr(gs, name + "_cuda")
+        seen = _SHAPES[name] = set()
+
+        @functools.wraps(fn)
+        def recorder(z_ri, w, _fn=fn, _key=key, _seen=seen):
+            out = _fn(z_ri, w)
+            _seen.add(_key(z_ri, w))
+            return out
+        setattr(gs, name + "_cuda", recorder)
+
+
+def kernel_shapes():
+    """Every input shape each kernel wrapper launched at in this process
+    (``record_kernel_shapes``)."""
+    return _SHAPES
 
 
 def profile_steps(step, card, label, nsteps=3, top=10, fft_share=False):
@@ -1522,6 +1559,7 @@ def _mesh_rank(rank, port, out_dir):
     from muse_tpu_torch.ops import grf_spectrum as gs
     from muse_tpu_torch.parallel import make_sims_mesh
 
+    record_kernel_shapes()
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
         world_size=MESH_RANKS,
@@ -1992,6 +2030,7 @@ def _field_rank(rank, port, out_dir):
     from muse_tpu_torch.ops import grf_spectrum as gs
     from muse_tpu_torch.parallel import make_sims_mesh
 
+    record_kernel_shapes()
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
         world_size=MESH_RANKS,
@@ -2777,6 +2816,7 @@ def main():
     from muse_tpu_torch.theta import ThetaSpec
 
     dev = torch.device("cuda", 0)
+    record_kernel_shapes()
 
     # 1. the card
     smi = subprocess.run(

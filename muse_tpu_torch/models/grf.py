@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.keys import lane_generator
 
@@ -614,6 +615,7 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     return prob
 
 
+@trace.spanned("muse.build.problem")
 def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
                          n: int = 256, sigma_noise: float = 1.0,
                          gamma: float = 2.0, k0: float = 1.0,
@@ -662,8 +664,18 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     drawn whole from each lane's generator and cut to the rank's rows, so
     every sim is the one drawn without a mesh; the data are drawn whole
     too. ``solver="lbfgs"`` cannot take a field axis.
+
+    ``grf_spectral_problem.host_syncs`` counts the blocking device→host
+    reads of the build and of ``prob.unpack_field``: the packing weights
+    and the pixel field ``prob.x_real``, and an ``x_obs`` tensor twice
+    more (three times for a real (n, n) one).
     """
     from ..ops.grf_spectrum import spectrum_quadforms
+
+    def read(a) -> np.ndarray:
+        if isinstance(a, torch.Tensor):
+            grf_spectral_problem.host_syncs += 1
+        return _host(a)
 
     if noise not in ("marginal", "direct", "fft"):
         raise ValueError(
@@ -687,7 +699,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     # the kernels' (rows, 2m) view of this rank's packed coordinates
     grid = (rows, 2 * nr)
     sqw_n = torch.sqrt(cfg.herm_weight) / n
-    sqw_n_host = np.sqrt(np.asarray(_host(cfg.herm_weight), np.float64)) / n
+    sqw_n_host = np.sqrt(np.asarray(read(cfg.herm_weight), np.float64)) / n
     # ∂log C/∂θ per θ component, tiled over (re, im) and cut to this rank
     dlogC2 = _dlogC(cfg).flatten(1).repeat(1, 2)[:, cols]
     coeffs = _herm_white_tensors(n, dev)
@@ -704,7 +716,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
 
     def unpack_field(vt):
         """Packed (L,) → real (n, n) field, numpy float64 on the host."""
-        re, im = np.split(np.asarray(_host(vt), np.float64), 2)
+        re, im = np.split(np.asarray(read(vt), np.float64), 2)
         zf = (re + 1j * im).reshape(n, nr) / sqw_n_host
         return np.fft.irfft2(zf, s=(n, n))
 
@@ -775,11 +787,12 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
             theta_true = (torch.zeros(2, device=dev) if cfg.infer_tilt
                           else 0.0)
         x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
-    elif np.ndim(_host(x_obs)) == 2:
-        x_obs = torch.tensor(pack_field_host(x_obs, cfg.herm_weight, n),
+    elif np.ndim(read(x_obs)) == 2:
+        x_obs = torch.tensor(pack_field_host(read(x_obs),
+                                             read(cfg.herm_weight), n),
                              device=dev)
     else:
-        x_obs = torch.tensor(np.asarray(_host(x_obs), np.float32),
+        x_obs = torch.tensor(np.asarray(read(x_obs), np.float32),
                              device=dev)
 
     prob = SimpleMuseProblem(
@@ -803,6 +816,9 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
 
     prob.suggested_h_precond = h_precond
     return prob
+
+
+grf_spectral_problem.host_syncs = 0
 
 
 def grf_marginal_mle(x_obs, cfg: GrfConfig, theta0=0.0,

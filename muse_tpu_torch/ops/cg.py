@@ -81,7 +81,9 @@ def batched_cg(
         ``b_norm`` must already be global.
 
     ``batched_cg.curvature_steps`` counts the loop steps that called
-    ``matvec_and_curvature``.
+    ``matvec_and_curvature``, and ``batched_cg.host_syncs`` the host's
+    blocking reads of ``all(done)``: one at each check point the loop
+    reaches (steps 0, 1, 2, 4, 8, then every ``_CHECK_EVERY``).
     """
     if r0 is None:
         if b is None:
@@ -123,6 +125,7 @@ def batched_cg(
     next_check = 0
     for k in range(maxiter):
         if k == next_check:
+            batched_cg.host_syncs += 1
             if bool(done.all()):
                 break
             next_check = max(1, k + min(k, _CHECK_EVERY))
@@ -151,3 +154,4 @@ def batched_cg(
 
 
 batched_cg.curvature_steps = 0
+batched_cg.host_syncs = 0

@@ -125,19 +125,15 @@ def spectrum_quadforms_cuda(z_ri: torch.Tensor,
     K ≤ 4 → (B, K), reading z once. Column k is bitwise
     ``spectrum_quadform_cuda(z_ri, W[k])``.
 
-    ``spectrum_quadforms_cuda.launches`` counts the launches and ``.shapes``
-    holds every (B, K, n, 2m) launched so far."""
+    ``spectrum_quadforms_cuda.launches`` counts the launches."""
     B, L, S = _check_kernel_args("spectrum_quadforms_cuda", z_ri, W,
                                  stacked=True)
     out = _launch_quadforms(z_ri, W, B, L, S)
     spectrum_quadforms_cuda.launches += 1
-    spectrum_quadforms_cuda.shapes.add((B, W.shape[0]) +
-                                       tuple(z_ri.shape[1:]))
     return out
 
 
 spectrum_quadforms_cuda.launches = 0
-spectrum_quadforms_cuda.shapes = set()
 
 
 def spectrum_quadform_cuda(z_ri: torch.Tensor,
@@ -146,17 +142,14 @@ def spectrum_quadform_cuda(z_ri: torch.Tensor,
     card → (B,).
 
     ``spectrum_quadform_cuda.launches`` counts these launches (apart from
-    :func:`spectrum_quadforms_cuda`'s) and ``.shapes`` holds every input
-    shape (B, n, 2m) launched so far."""
+    :func:`spectrum_quadforms_cuda`'s)."""
     B, L, S = _check_kernel_args("spectrum_quadform_cuda", z_ri, invCw2)
     out = _launch_quadforms(z_ri, invCw2[None], B, L, S)
     spectrum_quadform_cuda.launches += 1
-    spectrum_quadform_cuda.shapes.add(tuple(z_ri.shape))
     return out.reshape(B)
 
 
 spectrum_quadform_cuda.launches = 0
-spectrum_quadform_cuda.shapes = set()
 
 
 def _quadform_value(z_ri, invCw2):
@@ -288,7 +281,7 @@ def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
     """Launch the fused CUDA kernel: (B, n, 2m), (n, 2m) f32 on one card →
     (quad (B,), half_grad (B, n, 2m)). ``half_grad`` is bitwise ``z_ri *
     invCw2``. ``spectrum_quadform_and_grad_cuda.launches`` counts the
-    launches and ``.shapes`` holds every input shape launched so far."""
+    launches."""
     from .kernels import load_library
 
     B, L, S = _check_kernel_args("spectrum_quadform_and_grad_cuda", z_ri,
@@ -304,12 +297,10 @@ def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
         raise RuntimeError(f"spectrum_quadform_and_grad kernel launch failed: "
                            f"CUDA error {rc}")
     spectrum_quadform_and_grad_cuda.launches += 1
-    spectrum_quadform_and_grad_cuda.shapes.add(tuple(z_ri.shape))
     return out, g
 
 
 spectrum_quadform_and_grad_cuda.launches = 0
-spectrum_quadform_and_grad_cuda.shapes = set()
 
 
 def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):
@@ -326,8 +317,7 @@ def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):
 
 def reset_counts() -> None:
     """Zero every kernel wrapper's launch count and both quadform
-    Functions' forward-evaluation counts. The wrappers' ``shapes`` are kept:
-    they hold every input shape launched in the process."""
+    Functions' forward-evaluation counts."""
     spectrum_quadform_cuda.launches = 0
     spectrum_quadforms_cuda.launches = 0
     spectrum_quadform_and_grad_cuda.launches = 0

@@ -74,6 +74,7 @@ from ..ops.lbfgs import batched_lbfgs
 from ..parallel.mesh import FieldColumns
 from ..problem import MuseProblem
 from ..theta import ThetaSpec
+from ..utils import trace
 from ..utils.keys import lane_generator
 from ..utils.tree import TreeSpec, tree_map
 
@@ -95,6 +96,7 @@ class CompiledProblem:
     gathered route (module docstring), and ``nz`` is then this rank's
     count of columns of a lane's latent."""
 
+    @trace.spanned("muse.build.compiled")
     def __init__(self, problem: MuseProblem, spec: ThetaSpec, theta0_flat,
                  *, dtype=torch.float32, lbfgs_memory: int = 10,
                  lbfgs_max_iters: int = 500, mesh=None):
@@ -261,15 +263,17 @@ class CompiledProblem:
             return torch.where(data, obs[None].to(sims.dtype), sims)
 
         xs = tree_map(mix, self.x_obs, xs_all)
-        Z, aux = self._solve_maps(xs, Z_prev, th, atol)
-        Zw = self._whole(Z)
-        g = self._grads_th(xs, Zw, th)
-        if self.problem.theta_bijector is None:
-            g_t = g        # identity transform: the two gradients coincide
-        else:
-            g_t = vmap(lambda x, z: grad(
-                lambda tt: self._ll_t(x, z, tt))(th_t))(xs, Zw)
-        del Zw
+        with trace.span("muse.step.solve"):
+            Z, aux = self._solve_maps(xs, Z_prev, th, atol)
+        with trace.span("muse.step.score"):
+            Zw = self._whole(Z)
+            g = self._grads_th(xs, Zw, th)
+            if self.problem.theta_bijector is None:
+                g_t = g    # identity transform: the two gradients coincide
+            else:
+                g_t = vmap(lambda x, z: grad(
+                    lambda tt: self._ll_t(x, z, tt))(th_t))(xs, Zw)
+            del Zw
         return {"g": g, "g_t": g_t, "Z": Z, **aux}
 
     def muse_step(self, th, th_t, seeds, Z_prev, lane_ids, atol):
@@ -302,6 +306,7 @@ class CompiledProblem:
         return tuple(w if keep is None or i in keep else None
                      for i, w in enumerate(W))
 
+    @trace.spanned("muse.sample_whites")
     def sample_whites(self, seeds, x_only: bool = False):
         """Per-lane θ-independent draws, one generator per seed: a tuple of
         (B, …) tensors, one per part of W. Run once per fit.
@@ -341,7 +346,8 @@ class CompiledProblem:
         only x with ``x_of_white``. Equal to :meth:`muse_step` on the same
         seeds under the white-split contract."""
         self._require_whites("muse_step_white")
-        xs_all = self._xs_of_whites(W_all, th)
+        with trace.span("muse.step.x"):
+            xs_all = self._xs_of_whites(W_all, th)
         return self._step_from_xs(xs_all, th, th_t, Z_prev, lane_ids, atol)
 
     def j_sims(self, seeds, th, atol):
@@ -433,13 +439,14 @@ class CompiledProblem:
             x, z = self.problem.x_of_white(W, spec.unflatten(th))
             return x, self.zspec.flatten(z).to(self.dtype)
 
-        xs, zs = vmap(x_z)(*W_all)
-        S = zs.shape[0]
-        zhat, _ = self._solve_maps(xs, self._zhat_guesses(xs, zs, th), th,
-                                   atol)
-        # the problem's functions see the whole latent (gathered route);
-        # the CG's vectors are this rank's columns of it
-        zhat = self._whole(zhat)
+        with trace.span("muse.h.maps"):
+            xs, zs = vmap(x_z)(*W_all)
+            S = zs.shape[0]
+            zhat, _ = self._solve_maps(xs, self._zhat_guesses(xs, zs, th),
+                                       th, atol)
+            # the problem's functions see the whole latent (gathered
+            # route); the CG's vectors are this rank's columns of it
+            zhat = self._whole(zhat)
         cols = self.cols
 
         def grad_z(x, z, t):
@@ -458,37 +465,40 @@ class CompiledProblem:
             dF1 = jacfwd(lambda t: grad_z(x_at(W, t), zh, th))(th)
             return H1, dF, dF1
 
-        H1, dFdth, dFdth1 = vmap(per_sim)(W_all, xs, zhat)
+        with trace.span("muse.h.jac"):
+            H1, dFdth, dFdth1 = vmap(per_sim)(W_all, xs, zhat)
 
         # lanes = (sim, θ-column): solve A y = −dFdθ1 column by column,
         # with A = −∇z² logLike at ẑ (SPD), as an HVP
-        x_l = tree_map(lambda v: v.repeat_interleave(nth, dim=0), xs)
-        zhat_l = zhat.repeat_interleave(nth, dim=0)
+        with trace.span("muse.h.cg"):
+            x_l = tree_map(lambda v: v.repeat_interleave(nth, dim=0), xs)
+            zhat_l = zhat.repeat_interleave(nth, dim=0)
 
-        def neg_hvp(V):
-            return -cols.keep(vmap(lambda x, zh, v: jvp(
-                lambda z_: grad_z(x, z_, th), (zh,), (v,))[1])(
-                    x_l, zhat_l, cols.gather(V)))
+            def neg_hvp(V):
+                return -cols.keep(vmap(lambda x, zh, v: jvp(
+                    lambda z_: grad_z(x, z_, th), (zh,), (v,))[1])(
+                        x_l, zhat_l, cols.gather(V)))
 
-        M = None if precond is None else (
-            lambda R: cols.keep(vmap(lambda w, x: precond(w, x, th))(
-                cols.gather(R), x_l)))
-        rhs = cols.keep(-dFdth1.transpose(1, 2).reshape(S * nth, -1))
-        fsum = self.zsum
-        res = batched_cg(neg_hvp, rhs, tol=cg_tol, maxiter=cg_maxiter,
-                         precond=M, reduce=fsum)
-        Y = res.x.reshape(S, nth, self.nz)               # rows: A⁻¹ columns
-        H2 = -torch.einsum("szi,sjz->sij", cols.keep(dFdth.transpose(1, 2)
-                                                     ).transpose(1, 2), Y)
-        d = neg_hvp(res.x) - rhs
-        if fsum is None:
-            return H1 + H2, torch.linalg.vector_norm(d, dim=-1).reshape(S, nth)
-        resid = torch.sqrt(fsum(torch.sum(d * d, -1))).reshape(S, nth)
-        if self.gathered:
-            # H1 is whole; H2 contracts this rank's columns
-            return H1 + fsum(H2), resid
-        # H1 and H2 are sums over z: one field sum of both, and of ‖d‖²
-        return fsum(H1 + H2), resid
+            M = None if precond is None else (
+                lambda R: cols.keep(vmap(lambda w, x: precond(w, x, th))(
+                    cols.gather(R), x_l)))
+            rhs = cols.keep(-dFdth1.transpose(1, 2).reshape(S * nth, -1))
+            fsum = self.zsum
+            res = batched_cg(neg_hvp, rhs, tol=cg_tol, maxiter=cg_maxiter,
+                             precond=M, reduce=fsum)
+            Y = res.x.reshape(S, nth, self.nz)           # rows: A⁻¹ columns
+            H2 = -torch.einsum("szi,sjz->sij", cols.keep(dFdth.transpose(1, 2)
+                                                         ).transpose(1, 2), Y)
+            d = neg_hvp(res.x) - rhs
+            if fsum is None:
+                return H1 + H2, torch.linalg.vector_norm(
+                    d, dim=-1).reshape(S, nth)
+            resid = torch.sqrt(fsum(torch.sum(d * d, -1))).reshape(S, nth)
+            if self.gathered:
+                # H1 is whole; H2 contracts this rank's columns
+                return H1 + fsum(H2), resid
+            # H1 and H2 are sums over z: one field sum of both, and of ‖d‖²
+            return fsum(H1 + H2), resid
 
     @property
     def certifier(self):

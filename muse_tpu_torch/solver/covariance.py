@@ -4,7 +4,8 @@ Counterpart of ``muse_tpu/solver/covariance.py``. Σ⁻¹ = Hᵀ J⁻¹ H + H_pr
 with H_prior = −∇²logPriorθ at θ̂ in the untransformed space; Σ = inv(Σ⁻¹);
 plus the convenience Gaussian ``dist`` (Normal for scalar θ, MvNormal
 otherwise). All of it is tiny dense θ-space linear algebra, done on the
-host in float64.
+host in float64; ``finalize_result.host_syncs`` counts its one blocking
+device→host read, the prior's Hessian.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..distributions import MvNormal, Normal
 from ..result import MuseResult
+from .muse import _host
 
 __all__ = ["finalize_result"]
 
@@ -28,9 +30,9 @@ def finalize_result(result: MuseResult, comp) -> MuseResult:
     J = np.atleast_2d(np.asarray(result.J, np.float64))
     th = np.atleast_1d(np.asarray(result.theta, np.float64))
 
-    H_prior = -np.atleast_2d(comp.prior_hess_u(
-        torch.as_tensor(th, dtype=comp.dtype, device=comp.device))
-        .detach().cpu().numpy().astype(np.float64))
+    H_prior = -np.atleast_2d(_host(comp.prior_hess_u(
+        torch.as_tensor(th, dtype=comp.dtype, device=comp.device)),
+        finalize_result))
 
     # For a well-specified model at θ̂, J ≈ H ≈ Fisher. A large mismatch
     # usually means per-sim MAP error is leaking into the score variance
@@ -52,3 +54,6 @@ def finalize_result(result: MuseResult, comp) -> MuseResult:
     else:
         result.dist = MvNormal(th, 0.5 * (result.Sigma + result.Sigma.T))
     return result
+
+
+finalize_result.host_syncs = 0

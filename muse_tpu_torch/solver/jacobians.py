@@ -39,11 +39,12 @@ import torch
 
 from ..problem import MuseProblem
 from ..result import MuseResult
+from ..utils import trace
 from ..utils.keys import sim_seeds
 from ..utils.progress import ProgressReporter
 from .compiled import CompiledProblem
 from .covariance import finalize_result
-from .muse import _as_problem, check_mesh, gather_lanes, lead
+from .muse import _as_problem, _host, check_mesh, gather_lanes, lead
 
 __all__ = ["get_J", "get_H", "sample_covariance"]
 
@@ -61,14 +62,14 @@ def _seed_chunks(seeds, max_batch):
 
 
 def _setup(result: MuseResult, problem: MuseProblem, theta0, seed, dtype,
-           compiled: Optional[CompiledProblem], mesh):
+           compiled: Optional[CompiledProblem], mesh, site):
     from .muse import _as_seed, _host_flat, resolve_spec
 
     theta_start = theta0 if theta0 is not None else result.theta
     if theta_start is None:
         raise ValueError("θ₀ must be given (or present in result)")
     spec = resolve_spec(result, theta_start, dtype)
-    th = _host_flat(spec, theta_start)
+    th = _host_flat(spec, theta_start, site)
     if result.theta is None:
         result.theta = th
     if result.theta_struct is None:
@@ -99,6 +100,7 @@ def _chunk_table(mesh, c: int, width: int, columns) -> np.ndarray:
     return gather_lanes(mesh, local, lo, c)
 
 
+@trace.spanned("muse.get_J")
 def get_J(
     result: MuseResult,
     problem: MuseProblem,
@@ -125,10 +127,12 @@ def get_J(
     ``nsims``; only the remainder is simulated. Scores are appended per
     device chunk, and ``checkpoint_file`` saves the result after each.
     ``problem`` may be a PPL model function with ``observed=``.
+    ``get_J.host_syncs`` counts the blocking device→host reads: three a
+    chunk of new sims.
     """
     problem = _as_problem(problem, theta0, observed, "get_J")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
-                                  compiled, mesh)
+                                  compiled, mesh, get_J)
     nth = th.shape[0]
     nsims_existing = len(result.gs)
     nsims_remaining = nsims - nsims_existing
@@ -184,9 +188,9 @@ def get_J(
 
                 def columns(lo, hi):
                     out = comp.j_sims(chunk[lo:hi], th_dev, grad_z_atol)
-                    return (out["g"].detach().cpu().numpy(),
-                            out["failed"].cpu().numpy(),
-                            out["converged"].cpu().numpy())
+                    return (_host(out["g"], get_J),
+                            _host(out["failed"], get_J),
+                            _host(out["converged"], get_J))
 
                 table = _chunk_table(mesh, c, nth + 2, columns)
                 g_c = table[:, :nth]
@@ -236,6 +240,10 @@ def get_J(
     return result
 
 
+get_J.host_syncs = 0
+
+
+@trace.spanned("muse.get_H")
 def get_H(
     result: MuseResult,
     problem: MuseProblem,
@@ -284,7 +292,9 @@ def get_H(
     ``result.metadata["implicit_diff_cg_resid"]``. Otherwise per-sim
     Jacobians land in ``result.Hs`` per device chunk (``result.Hs`` counts
     toward ``nsims``, src/muse.jl:317-319). ``problem`` may be a PPL model
-    function with ``observed=``."""
+    function with ``observed=``. ``get_H.host_syncs`` counts the blocking
+    device→host reads: two a chunk of sims (implicit-diff or a stencil
+    pass)."""
     if not implicit_diff:
         if fd_order == 2:
             offsets = np.array([1.0, -1.0])
@@ -297,7 +307,7 @@ def get_H(
 
     problem = _as_problem(problem, theta0, observed, "get_H")
     spec, th, seed, comp = _setup(result, problem, theta0, seed, dtype,
-                                  compiled, mesh)
+                                  compiled, mesh, get_H)
     ntheta = th.shape[0]
     nsims_existing = len(result.Hs)
     nsims_remaining = nsims - nsims_existing
@@ -382,8 +392,8 @@ def get_H(
             def columns(lo, hi):
                 out = comp.h_fd(chunk[lo:hi], th_dev, step_now, Zfid,
                                 grad_z_atol, offsets)
-                return (out["g"].detach().cpu().numpy(),
-                        out["failed"].cpu().numpy().any(axis=(1, 2)))
+                return (_host(out["g"], get_H),
+                        _host(out["failed"], get_H).any(axis=(1, 2)))
 
             table = _chunk_table(mesh, c, int(np.prod(g_shape)) + 1,
                                  columns)
@@ -450,6 +460,9 @@ def get_H(
     return result
 
 
+get_H.host_syncs = 0
+
+
 def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,
                 h1_is_zero, precond, skip_errors, max_batch, progress,
                 checkpoint_file, mesh):
@@ -467,8 +480,8 @@ def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,
             def columns(lo, hi):
                 Hs_c, resid_c = h_impl(chunk[lo:hi], th_dev, fit_atol,
                                        cg_maxiter, cg_tol, h1_is_zero)
-                return (Hs_c.detach().cpu().numpy(),
-                        resid_c.detach().cpu().numpy())
+                with trace.span("muse.get_H.read"):
+                    return _host(Hs_c, get_H), _host(resid_c, get_H)
 
             table = _chunk_table(mesh, c, nth * nth + nth, columns)
             Hs_c = table[:, :nth * nth].reshape(c, nth, nth)

@@ -19,7 +19,8 @@ are broadcast, so no rank leaves the loop alone. Its field axis splits
 every lane's latent, on the route ``CompiledProblem`` picks: the
 sharded-sum route for a problem built with that ``mesh=``, the gathered
 route for any other (``solver/compiled.py``). ``profile_dir`` traces
-the iteration loop with ``torch.profiler``.
+the iteration loop with ``torch.profiler``, the port's spans on
+(``utils/trace.py``).
 
 Left out: ``certify`` and the odd-lane padding (TPU compiler guards).
 """
@@ -38,6 +39,7 @@ import torch
 from ..problem import MuseProblem
 from ..result import MuseResult
 from ..theta import ThetaSpec
+from ..utils import trace
 from ..utils.keys import dummy_seed, sim_seeds
 from ..utils.progress import ProgressReporter
 from ..utils.tree import tree_map
@@ -46,8 +48,16 @@ from .compiled import CompiledProblem
 __all__ = ["muse", "muse_fit"]
 
 
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(np.float64)
+def _read(t, site) -> np.ndarray:
+    """``t`` on the host: one blocking device→host read, counted in
+    ``site.host_syncs`` (the function that reads)."""
+    site.host_syncs += 1
+    return t.detach().cpu().numpy()
+
+
+def _host(t, site) -> np.ndarray:
+    """:func:`_read`, in float64."""
+    return _read(t, site).astype(np.float64)
 
 
 def muse(problem: MuseProblem, theta0, *, observed=None,
@@ -163,6 +173,7 @@ def _profiler(profile_dir, device, mesh):
         str(profile_dir), worker_name=worker))
 
 
+@trace.spanned("muse.fit")
 def muse_fit(
     result: MuseResult,
     problem: MuseProblem,
@@ -213,8 +224,15 @@ def muse_fit(
 
     ``profile_dir``: trace the iteration loop with ``torch.profiler`` (CPU
     activity, plus the card's on one) and write one trace file per rank
-    there (``tensorboard_trace_handler``); each iteration's device work
-    sits in a ``muse_step`` span.
+    there (``tensorboard_trace_handler``). The port's spans
+    (``utils/trace.py``) are on for the loop: each chunk's step sits in a
+    ``muse.fit.step`` span, its reads in ``muse.fit.read`` and the host's
+    θ update in ``muse.fit.update``.
+
+    ``muse_fit.host_syncs`` counts the blocking device→host reads: one for
+    the transformed θ₀ (two if θ₀ is a tensor), then per outer iteration
+    five a chunk (four where the MAP solver reports no iteration counts),
+    four for the θ update, and with ``save_maps=True`` one a kept map.
     """
     problem = _as_problem(problem, theta0 if theta0 is not None
                           else result.theta_struct, observed, "muse_fit")
@@ -227,21 +245,21 @@ def muse_fit(
         raise ValueError("θ₀ must be given (or present in result)")
     spec = resolve_spec(result, theta_start, dtype)
 
-    th = _host_flat(spec, theta_start)
+    th = _host_flat(spec, theta_start, muse_fit)
     result.theta_struct = spec.to_user(th)
 
     comp = compiled or CompiledProblem(problem, spec, th, dtype=dtype,
                                        mesh=mesh)
     check_mesh(problem, comp, mesh)
     dev = comp.device
-    th_t = _host(comp.transform(comp.theta(th)))
+    th_t = _host(comp.transform(comp.theta(th)), muse_fit)
     th_unreg, th_t_unreg = th.copy(), th_t.copy()
     nth = th.shape[0]
 
     alpha_fn = alpha if callable(alpha) else (lambda i, a=alpha: a)
     save_sims_maps = save_maps is not False
     if save_maps is True:
-        save_maps = lambda z: z.detach().cpu().numpy()
+        save_maps = lambda z: _read(z, muse_fit)
     elif save_maps is False:
         save_maps = lambda z: None
 
@@ -276,15 +294,19 @@ def muse_fit(
                             enabled=progress and lead(mesh))
     prof = (_profiler(profile_dir, dev, mesh) if profile_dir
             else contextlib.nullcontext())
+    traced = trace.enabled()
+    if profile_dir:
+        trace.enable(True)
     try:
       with prof:
         for i in range(len(history) + 1, maxsteps + 1):
             t0 = _time.perf_counter()
 
             # convergence check (src/muse.jl:163-165), rank 0's under a mesh
-            stop = i > 2 and _theta_converged(history, theta_rtol, i)
-            if mesh is not None:
-                stop = bool(mesh.broadcast_host(stop)[0])
+            with trace.span("muse.fit.update"):
+                stop = i > 2 and _theta_converged(history, theta_rtol, i)
+                if mesh is not None:
+                    stop = bool(mesh.broadcast_host(stop)[0])
             if stop:
                 _warn_midmarch_stop(history, theta_rtol, nsims)
                 break
@@ -296,117 +318,124 @@ def muse_fit(
             table = np.zeros((B, 2 * nth + 3))
             zhat_dat = None
             zhat_sims_parts = []
-            with torch.profiler.record_function("muse_step"):
-                for ci, ((s0, e0), (a, b)) in enumerate(zip(bounds, blocks)):
-                    if b > a:
+            for ci, ((s0, e0), (a, b)) in enumerate(zip(bounds, blocks)):
+                if b > a:
+                    with trace.span("muse.fit.step"):
                         out = _chunk_step(comp, use_white, th_dev, th_t_dev,
                                           W_chunks, seeds_all, Z_chunks, ci,
                                           a, b, lane_ids, grad_z_atol)
-                        Z_chunks[ci] = out["Z"]
+                    Z_chunks[ci] = out["Z"]
+                    with trace.span("muse.fit.read"):
                         it = out.get("iterations", 0)
-                        it = it.cpu().numpy() if isinstance(it, torch.Tensor) \
-                            else np.asarray(it)
+                        it = (_host(it, muse_fit)
+                              if isinstance(it, torch.Tensor)
+                              else np.asarray(it))
                         table[a:b] = np.column_stack([
-                            _host(out["g"]), _host(out["g_t"]),
-                            out["converged"].cpu().numpy(),
-                            out["failed"].cpu().numpy(),
+                            _host(out["g"], muse_fit),
+                            _host(out["g_t"], muse_fit),
+                            _host(out["converged"], muse_fit),
+                            _host(out["failed"], muse_fit),
                             it if it.ndim else np.full(b - a, int(it))])
-                    if save_sims_maps:
-                        Zc = Z_chunks[ci]
-                        if mesh is not None:
-                            Zc = mesh.gather_maps(
-                                Zc, a - s0, e0 - s0, comp.field_slice,
-                                comp.field_size)
-                        if ci == 0:
-                            zhat_dat = Zc[0]
-                        zhat_sims_parts.append(Zc[1 if ci == 0 else 0:])
-            table = gather_lanes(mesh, table, 0, B)
-            g = table[:, :nth]                          # (nsims+1, nθ)
-            g_t = table[:, nth:2 * nth]
-            out = {"converged": table[:, 2 * nth] > 0,
-                   "failed": table[:, 2 * nth + 1] > 0,
-                   "iterations": table[:, 2 * nth + 2].astype(np.int32)}
-            g_dat, g_sims = g[0], g[1:]
-            g_dat_t, g_sims_t = g_t[0], g_t[1:]
+                if save_sims_maps:
+                    Zc = Z_chunks[ci]
+                    if mesh is not None:
+                        Zc = mesh.gather_maps(
+                            Zc, a - s0, e0 - s0, comp.field_slice,
+                            comp.field_size)
+                    if ci == 0:
+                        zhat_dat = Zc[0]
+                    zhat_sims_parts.append(Zc[1 if ci == 0 else 0:])
+            with trace.span("muse.fit.read"):
+                table = gather_lanes(mesh, table, 0, B)
+            with trace.span("muse.fit.update"):
+                g = table[:, :nth]                          # (nsims+1, nθ)
+                g_t = table[:, nth:2 * nth]
+                out = {"converged": table[:, 2 * nth] > 0,
+                       "failed": table[:, 2 * nth + 1] > 0,
+                       "iterations": table[:, 2 * nth + 2].astype(np.int32)}
+                g_dat, g_sims = g[0], g[1:]
+                g_dat_t, g_sims_t = g_t[0], g_t[1:]
 
-            # the MUSE score (src/muse.jl:183-185)
-            g_like_t = g_dat_t - g_sims_t.mean(axis=0)
-            g_prior_t = _host(comp.prior_grad_t(th_t_dev))
-            g_post_t = g_like_t + g_prior_t
+                # the MUSE score (src/muse.jl:183-185)
+                g_like_t = g_dat_t - g_sims_t.mean(axis=0)
+                g_prior_t = _host(comp.prior_grad_t(th_t_dev), muse_fit)
+                g_post_t = g_like_t + g_prior_t
 
-            # H⁻¹ via sims variance / Broyden replay (src/muse.jl:188-205)
-            var_sims = g_sims_t.var(axis=0, ddof=1)
-            if (var_sims <= 0).any() or not np.isfinite(var_sims).all():
-                bad = [result.theta_names[k] if k < len(result.theta_names)
-                       else str(k)
-                       for k in np.where(~(var_sims > 0))[0]]
-                raise RuntimeError(
-                    f"MUSE iteration {i}: zero/non-finite score variance "
-                    f"for θ component(s) {bad}. A hyper-parameter whose "
-                    "score has no simulation scatter does not affect the "
-                    "observed data and cannot be estimated by MUSE — check "
-                    "the model structure.")
-            Hinv_like_sims = np.diag(-1.0 / var_sims)
-            if Hinv_like is None or Hinv_update == "sims":
-                Hinv_like = Hinv_like_sims
-            elif i > 2:
-                j0 = int(max(2, i - broyden_memory))
-                Hinv_like = history[j0 - 2]["Hinv_like_sims_t"]
-                for j in range(j0, i):
-                    hj, hjm1 = history[j - 1], history[j - 2]
-                    dth = hj["theta_t"] - hjm1["theta_t"]
-                    dg = hj["g_like_t"] - hjm1["g_like_t"]
-                    Hdg = Hinv_like @ dg
-                    denom = dth @ Hdg
-                    Hinv_like = Hinv_like + np.outer(
-                        (dth - Hdg) / denom, dth @ Hinv_like)
-                    if Hinv_update == "diagonal_broyden":
-                        Hinv_like = np.diag(np.diag(Hinv_like))
+                # H⁻¹ via sims variance / Broyden replay (src/muse.jl:188-205)
+                var_sims = g_sims_t.var(axis=0, ddof=1)
+                if (var_sims <= 0).any() or not np.isfinite(var_sims).all():
+                    bad = [result.theta_names[k] if k < len(result.theta_names)
+                           else str(k)
+                           for k in np.where(~(var_sims > 0))[0]]
+                    raise RuntimeError(
+                        f"MUSE iteration {i}: zero/non-finite score variance "
+                        f"for θ component(s) {bad}. A hyper-parameter whose "
+                        "score has no simulation scatter does not affect the "
+                        "observed data and cannot be estimated by MUSE — "
+                        "check the model structure.")
+                Hinv_like_sims = np.diag(-1.0 / var_sims)
+                if Hinv_like is None or Hinv_update == "sims":
+                    Hinv_like = Hinv_like_sims
+                elif i > 2:
+                    j0 = int(max(2, i - broyden_memory))
+                    Hinv_like = history[j0 - 2]["Hinv_like_sims_t"]
+                    for j in range(j0, i):
+                        hj, hjm1 = history[j - 1], history[j - 2]
+                        dth = hj["theta_t"] - hjm1["theta_t"]
+                        dg = hj["g_like_t"] - hjm1["g_like_t"]
+                        Hdg = Hinv_like @ dg
+                        denom = dth @ Hdg
+                        Hinv_like = Hinv_like + np.outer(
+                            (dth - Hdg) / denom, dth @ Hinv_like)
+                        if Hinv_update == "diagonal_broyden":
+                            Hinv_like = np.diag(np.diag(Hinv_like))
 
-            H_prior_t = np.atleast_2d(_host(comp.prior_hess_t(th_t_dev)))
-            Hinv_post = np.linalg.inv(
-                np.linalg.inv(Hinv_like) + H_prior_t)
+                H_prior_t = np.atleast_2d(_host(comp.prior_hess_t(th_t_dev),
+                                                muse_fit))
+                Hinv_post = np.linalg.inv(
+                    np.linalg.inv(Hinv_like) + H_prior_t)
 
-            t = _time.perf_counter() - t0
-            history.append({
-                "theta": th.copy(), "theta_unreg": th_unreg.copy(),
-                "theta_t": th_t.copy(), "theta_t_unreg": th_t_unreg.copy(),
-                "g_like_sims": g_sims, "g_like_dat_t": g_dat_t,
-                "g_like_sims_t": g_sims_t, "g_like_t": g_like_t,
-                "g_prior_t": g_prior_t, "g_post_t": g_post_t,
-                "Hinv_post_t": Hinv_post, "H_prior_t": H_prior_t,
-                "Hinv_like_t": Hinv_like,
-                "Hinv_like_sims_t": Hinv_like_sims,
-                "map_converged": out["converged"],
-                "map_failed": out["failed"],
-                "map_iterations": out["iterations"],
-                "t": t,
-                "zhat_dat": save_maps(zhat_dat),
-                "zhat_sims": (save_maps(torch.cat(zhat_sims_parts))
-                              if save_sims_maps else None),
-            })
-            _warn_maps(out, i)
+                t = _time.perf_counter() - t0
+                history.append({
+                    "theta": th.copy(), "theta_unreg": th_unreg.copy(),
+                    "theta_t": th_t.copy(), "theta_t_unreg": th_t_unreg.copy(),
+                    "g_like_sims": g_sims, "g_like_dat_t": g_dat_t,
+                    "g_like_sims_t": g_sims_t, "g_like_t": g_like_t,
+                    "g_prior_t": g_prior_t, "g_post_t": g_post_t,
+                    "Hinv_post_t": Hinv_post, "H_prior_t": H_prior_t,
+                    "Hinv_like_t": Hinv_like,
+                    "Hinv_like_sims_t": Hinv_like_sims,
+                    "map_converged": out["converged"],
+                    "map_failed": out["failed"],
+                    "map_iterations": out["iterations"],
+                    "t": t,
+                    "zhat_dat": save_maps(zhat_dat),
+                    "zhat_sims": (save_maps(torch.cat(zhat_sims_parts))
+                                  if save_sims_maps else None),
+                })
+                _warn_maps(out, i)
 
-            # damped Newton step (src/muse.jl:223-227)
-            a = alpha_fn(i)
-            th_t_unreg = th_t - a * (Hinv_post @ g_post_t)
-            th_unreg = _host(comp.inv_transform(comp.theta(th_t_unreg)))
-            th_t = (np.asarray(regularize(th_t_unreg), np.float64)
-                    if regularize is not None else th_t_unreg)
-            th = _host(comp.inv_transform(comp.theta(th_t)))
-            if mesh is not None:
-                # global rank 0's θ on every rank
-                agreed = mesh.broadcast_host(np.concatenate(
-                    [th, th_t, th_unreg, th_t_unreg])).reshape(4, nth)
-                th, th_t, th_unreg, th_t_unreg = (v.copy() for v in agreed)
+                # damped Newton step (src/muse.jl:223-227)
+                a = alpha_fn(i)
+                th_t_unreg = th_t - a * (Hinv_post @ g_post_t)
+                th_unreg = _host(comp.inv_transform(comp.theta(th_t_unreg)),
+                                 muse_fit)
+                th_t = (np.asarray(regularize(th_t_unreg), np.float64)
+                        if regularize is not None else th_t_unreg)
+                th = _host(comp.inv_transform(comp.theta(th_t)), muse_fit)
+                if mesh is not None:
+                    # global rank 0's θ on every rank
+                    agreed = mesh.broadcast_host(np.concatenate(
+                        [th, th_t, th_unreg, th_t_unreg])).reshape(4, nth)
+                    th, th_t, th_unreg, th_t_unreg = (v.copy() for v in agreed)
 
-            # running updates for early stop (src/muse.jl:230-232)
-            result.theta = th_unreg
-            result.gs = [gi for gi in g_sims]
-            # per-sim reliability of the stored scores, for get_J's reuse
-            result.metadata["gs_converged"] = (
-                out["converged"][1:] & ~out["failed"][1:]).copy()
-            result.time += t
+                # running updates for early stop (src/muse.jl:230-232)
+                result.theta = th_unreg
+                result.gs = [gi for gi in g_sims]
+                # per-sim reliability of the stored scores, for get_J's reuse
+                result.metadata["gs_converged"] = (
+                    out["converged"][1:] & ~out["failed"][1:]).copy()
+                result.time += t
 
             pbar.step(f"θ={_fmt(th_unreg)}  "
                       f"|g_post|={np.max(np.abs(g_post_t)):.3g}")
@@ -415,6 +444,7 @@ def muse_fit(
                 result.save(checkpoint_file)
     finally:
         pbar.close()
+        trace.enable(traced)
 
     if get_covariance:
         from .jacobians import get_H, get_J
@@ -428,6 +458,9 @@ def muse_fit(
     return result
 
 
+muse_fit.host_syncs = 0
+
+
 def _chunk_step(comp, use_white, th, th_t, W_chunks, seeds_all, Z_chunks,
                 ci, a, b, lane_ids, atol):
     """One chunk's device work on this rank's lanes a..b."""
@@ -438,10 +471,10 @@ def _chunk_step(comp, use_white, th, th_t, W_chunks, seeds_all, Z_chunks,
                           lane_ids[a:b], atol)
 
 
-def _host_flat(spec: ThetaSpec, theta) -> np.ndarray:
+def _host_flat(spec: ThetaSpec, theta, site) -> np.ndarray:
     flat = spec.flatten(theta)
     if isinstance(flat, torch.Tensor):
-        return _host(flat)
+        return _host(flat, site)
     return np.asarray(flat, np.float64)
 
 

@@ -406,7 +406,10 @@ def test_profile_dir_writes_a_trace(tmp_path):
     mt.muse(p, 1.0, nsims=8, maxsteps=3, seed=1, profile_dir=str(tmp_path))
     traces = list(tmp_path.glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
-    assert "muse_step" in traces[0].read_text()
+    text = traces[0].read_text()
+    assert "muse.fit.step" in text and "muse.fit.update" in text
+    from muse_tpu_torch.utils import trace
+    assert not trace.enabled()          # on for the call only
 
 
 def _old_batched_cg(matvec, b=None, x0=None, *, tol=1e-6, maxiter=500,
