@@ -68,8 +68,8 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      log-likelihood) against the plain version's (rtol 1e-5, atol 1e-5
      relative to the largest entry); then spectrum_quadforms, the
      θ-scores' wrapper, at every lane count a main path gives it at
-     n=1024 (``QUAD_LANES``: 1, 5, 17, 20, 32, 40, 64, 101, 128) with K = 1
-     and K = 2 weights (the field GRF's score weights w·∂log C/C), and at
+     n=1024 (``QUAD_LANES``: 1, 5, 17, 20, 32, 40, 64, 65, 101, 128) with
+     K = 1 and K = 2 weights (the field GRF's score weights w·∂log C/C), and at
      (3, 100) with K = 3, (5, 33) with K = 4, (6, 33) with K = 2 (ragged
      tails, misaligned lanes): max relative error ≤ 1e-6 against its
      plain version in float64, a bitwise rerun, each column bitwise the
@@ -106,7 +106,7 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      gives it at n=1024 (``FUSED_LANES``: the fits' chunks of 128, 101 and
      1 lanes; the MAP solves of every get_H, 51, 40, 20, 10, 8 and 5
      lanes; under a sims axis of 2 the halves 64, 26 and 25; phase 17's
-     chunks of 32 and 5 and its A/B's 17) on the GRF
+     chunks of 32 and 5 and its A/B's 17; phase 18c's 65) on the GRF
      operator A = 1 + C/σ², at 101 and 5 lanes also on the bandpower
      model's 12-band operator and at 49 and 6 on its 6-band one (phase
      16), on a field axis of 2's row slices of 512 × 1026 (both halves:
@@ -313,9 +313,30 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      run's model scores through the kernel, and fused launches = the CG
      steps of the runs whose PCG runs through it (none elsewhere); at
      bench.py's σ_noise = 1 those PCGs take no step.
+ 18. the batched hermitian white sampler (``ops/herm_white.py``,
+     ``csrc/herm_white.cu``). 18a: ``CompiledProblem.sample_whites``
+     through the kernel against the per-lane generator loop it replaces
+     (the same problem with its ``sample_whites_batched`` hook taken
+     away), bit for bit (``torch.equal``): the spectral GRF at n = 64,
+     256, 1024 and 257 with B = 1, 128 and 513 lanes, n = 2048 (two
+     grid-stride steps of torch's ``randn``) with B = 3, ``x_only`` on and
+     off; the bandpower
+     model and the spectral GRF's ``direct`` noise at n = 1024; the kernel
+     against the loop on field-axis slices of the packed grid (a field axis
+     of 2's second rank, and an uneven cut). A case that differs prints its
+     count of differing floats and the first of them, and fails the run;
+     every call, at B = 1, 128 and 513 alike, launches the kernel once.
+     18b: the kernel's CUDA-event time at (128, L) for one part and for
+     both, beside its bound (the floats written over 3.35 TB/s) and the
+     loop's synchronised wall for the same lanes. 18c: the benchmark's
+     ``sims512`` and ``sims64`` pipelines at 1024² (512 sims in chunks of
+     128 and H over 51 sims; 64 sims in one chunk of 65 lanes and H over 8
+     sims), the counters read around each: every lane batched (564 and
+     73), none looped, one kernel launch a ``sample_whites`` call (6 and
+     2).
 
 A recorder in place of each kernel wrapper keeps every input shape
-launched (``record_kernel_shapes``); after phase 17 the run fails if a
+launched (``record_kernel_shapes``); after phase 18 the run fails if a
 kernel ran at a shape that phases 3 and 6 did not hold against the plain
 version, and phase 15 checks its ranks' shapes alike.
 Every path's quadform count is kernel 1's launches through
@@ -366,6 +387,9 @@ def cuda_ms(fn, samples=20, per_sample=20):
 
 # the slice 2 pipeline's settings (examples/northstar_grf.py:72-108)
 NSIMS2, MAX_BATCH2, H_NSIMS2 = 512, 128, 51
+# the benchmark's sims64 cell (phase 18c): the same pipeline with 64 sims,
+# its fit one chunk of 65 lanes, its H over max(8, 64/10) sims
+NSIMS18, H_NSIMS18 = 64, 8
 # the lane counts of its fit's chunks: nsims + 1 lanes (the data lane) in
 # chunks of MAX_BATCH2, the last one smaller
 FIT_CHUNKS2 = sorted({min(MAX_BATCH2, NSIMS2 + 1 - s0)
@@ -848,11 +872,11 @@ LANES17 = sorted({1, NSIMS17 + 1, MAX_BATCH17, (NSIMS17 + 1) % MAX_BATCH17,
                   AB_NSIMS17 + 1})
 QUAD_LANES = sorted({1, 17, 101, *FIT_CHUNKS2, NSIMS3 + 1, H_LANES3,
                      NSIMS4_GRF + 1, H_LANES4_PIXEL[1], *MESH_LANES2,
-                     *LANES17})
+                     *LANES17, NSIMS18 + 1})
 FUSED_LANES = sorted({1, 17, H_NSIMS2, *FIT_CHUNKS2, NSIMS3 + 1, H_NSIMS3,
                       H_LANES3, NSIMS4_GRF + 1, H_CHUNK4_BAND,
                       *H_LANES4_PIXEL, *MESH_LANES2, *MESH_H_LANES2,
-                      H_NSIMS16_GRF, *LANES17})
+                      H_NSIMS16_GRF, *LANES17, NSIMS18 + 1, H_NSIMS18})
 # the bandpower operators' lane counts: slice 4's 12 bands, slice 7's 6
 FUSED_BAND = ((NBANDS4, (NSIMS4_GRF + 1, H_CHUNK4_BAND)),
               (NBANDS16, (NSIMS16_BAND + 1, H_NSIMS16_BAND)))
@@ -2796,6 +2820,205 @@ def phase17(card):
     return runs
 
 
+#: phase 18a's spectral GRF cases: (n, lane counts)
+WHITES18 = [(64, (1, 128, 513)), (256, (1, 128, 513)), (1024, (1, 128, 513)),
+            (257, (1, 128, 513)), (2048, (3,))]
+
+
+def _bits(t):
+    """A float32 tensor's bits: -0 and +0 differ, as the reference's redraw
+    would see them."""
+    import torch
+    return t.view(torch.int32)
+
+
+def _first_diffs(got, want, k=3):
+    """The count of floats of two equal-shaped tensors whose bits differ and
+    the first ``k`` of them as (index, got, want)."""
+    bad = (_bits(got) != _bits(want)).nonzero()
+    first = [(tuple(ix), float(got[tuple(ix)]), float(want[tuple(ix)]))
+             for ix in bad[:k].tolist()]
+    return int(bad.shape[0]), first
+
+
+def whites18(card, dev, cases=WHITES18, n=1024, lanes=(1, 128)):
+    """18a: the kernel against the per-lane loop, bit for bit: the spectral
+    GRF at ``cases``, its direct noise and the bandpower model at n with
+    ``lanes``, and field-axis slices of n's packed grid at the last of
+    ``lanes``. Returns the failures (none when every case is bitwise) and
+    the largest absolute difference any case found."""
+    import numpy as np
+    import torch
+
+    from muse_tpu_torch.models import bandpower_problem, grf_spectral_problem
+    from muse_tpu_torch.models.grf import _herm_white_tensors
+    from muse_tpu_torch.ops import herm_white as hw
+    from muse_tpu_torch.solver import CompiledProblem
+    from muse_tpu_torch.theta import ThetaSpec
+    from muse_tpu_torch.utils.keys import sim_seeds
+
+    fails, err = [], [0.0]
+
+    def compare(label, got, want):
+        ok = len(got) == len(want) and all(
+            (g is None) == (w is None) and (g is None or (
+                g.shape == w.shape and torch.equal(_bits(g), _bits(w))))
+            for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            if g is not None and w is not None and g.shape == w.shape:
+                err[0] = max(err[0], float((g - w).abs().max()))
+        if ok:
+            phase(f"phase 18a [{card}] {label}: bitwise equal "
+                  f"({[None if g is None else tuple(g.shape) for g in got]})")
+            return
+        for p, (g, w) in enumerate(zip(got, want)):
+            if g is None or w is None or g.shape != w.shape:
+                msg = f"part {p}: {g is None}, {w is None} None"
+            else:
+                count, first = _first_diffs(g, w)
+                msg = f"part {p}: {count} floats differ, first {first}"
+            phase(f"phase 18a [{card}] {label} DIFFERS: {msg}")
+            fails.append(f"{label} {msg}")
+
+    def against_loop(label, prob, theta0, lanes):
+        spec = ThetaSpec.from_example(theta0)
+        comp = CompiledProblem(prob, spec, spec.flatten(theta0))
+        hook = prob.sample_whites_batched
+        for B in lanes:
+            seeds = sim_seeds(B + len(label), B)
+            for x_only in (False, True):
+                before = hw.herm_white_cuda.launches
+                got = comp.sample_whites(seeds, x_only=x_only)
+                launches = hw.herm_white_cuda.launches - before
+                prob.sample_whites_batched = None
+                try:
+                    want = comp.sample_whites(seeds, x_only=x_only)
+                finally:
+                    prob.sample_whites_batched = hook
+                if launches != 1:
+                    fails.append(f"{label} B={B}: {launches} launches")
+                compare(f"{label} B={B} x_only={x_only}", got, want)
+                del got, want
+        del comp
+
+    for nc, lc in cases:
+        against_loop(f"spectral n={nc}",
+                     grf_spectral_problem(n=nc, sigma_noise=0.01,
+                                          device=dev), 0.5, lc)
+    against_loop(f"spectral direct n={n}",
+                 grf_spectral_problem(n=n, sigma_noise=0.01, noise="direct",
+                                      device=dev), 0.5, lanes)
+    against_loop(f"bandpower n={n} nbands=12",
+                 bandpower_problem(n=n, nbands=12, sigma_noise=0.01,
+                                   device=dev), np.zeros(12), lanes)
+    # a field axis of 2's second rank (the second half of the rows of the
+    # (n, 2m) grid: the im half), and an uneven cut of the rows
+    m2, B = 2 * (n // 2 + 1), lanes[-1]
+    coeffs = _herm_white_tensors(n, dev)
+    for rows in ((n // 2, n), (n * 3 // 10, n * 7 // 10)):
+        cols = slice(rows[0] * m2, rows[1] * m2)
+        seeds = sim_seeds(rows[0], B)
+        for parts in ((0,), (0, 1)):
+            compare(f"field rows {rows} parts {parts} B={B}",
+                    hw.herm_white_cuda(seeds, n, coeffs, parts, cols),
+                    hw.herm_white_plain(seeds, n, coeffs, parts, cols))
+    return fails, err[0]
+
+
+def times18(card, dev):
+    """18b: the kernel's time at (128, L) beside its bound and the loop's
+    wall. Returns the numbers."""
+    import torch
+
+    from muse_tpu_torch.models.grf import _herm_white_tensors
+    from muse_tpu_torch.ops import herm_white as hw
+    from muse_tpu_torch.utils.keys import sim_seeds
+
+    n, B = 1024, 128
+    L = 2 * n * (n // 2 + 1)
+    coeffs = _herm_white_tensors(n, dev)
+    seeds = sim_seeds(18, B)
+    out = {}
+    for parts in ((0,), (0, 1)):
+        ms = cuda_ms(lambda: hw.herm_white_cuda(seeds, n, coeffs, parts))
+        bound, _ = least_ms(B * L * 4 * len(parts), 0)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hw.herm_white_plain(seeds, n, coeffs, parts)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        loop_ms = statistics.median(walls)
+        out[len(parts)] = {"ms": ms, "bound_ms": bound,
+                           "roofline": bound / ms, "loop_ms": loop_ms}
+        phase(f"phase 18b [{card}] herm_white (B={B}, L={L}, {len(parts)} "
+              f"part(s)): kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%), per-lane loop {loop_ms:.2f} ms "
+              f"(walls {[round(w, 2) for w in walls]})")
+    return out
+
+
+def pipelines18(card, dev):
+    """18c: the benchmark's ``sims512`` and ``sims64`` pipelines at 1024²,
+    every lane through the kernel (at lane counts phases 3 and 6 hold the
+    other kernels at). Returns each pipeline's counter deltas."""
+    import warnings
+
+    import torch
+
+    from muse_tpu_torch import MuseResult, get_H, get_J, muse_fit
+    from muse_tpu_torch.models import grf_spectral_problem
+    from muse_tpu_torch.utils import trace
+
+    prob = grf_spectral_problem(n=1024, sigma_noise=0.01, device=dev)
+    out = {}
+    for nsims, h_sims in ((NSIMS2, H_NSIMS2), (NSIMS18, H_NSIMS18)):
+        # a sample_whites call for each fit chunk and one for H's sims
+        lanes = nsims + 1 + h_sims
+        calls = -(-(nsims + 1) // MAX_BATCH2) + -(-h_sims // MAX_BATCH2)
+        c0 = trace.counters()
+        t0 = time.perf_counter()
+        res = MuseResult()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            muse_fit(res, prob, 0.5, nsims=nsims, max_batch=MAX_BATCH2,
+                     theta_rtol=1e-5, Hinv_update="sims", alpha=1.0,
+                     maxsteps=50, grad_z_atol=1e-2, seed=18)
+            get_J(res, prob, nsims=nsims, max_batch=MAX_BATCH2, seed=18,
+                  warn_reuse=False)
+            get_H(res, prob, nsims=h_sims, implicit_diff=True,
+                  implicit_diff_precond=prob.suggested_h_precond,
+                  max_batch=MAX_BATCH2, seed=18)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = {k: v - c0[k] for k, v in trace.counters().items()}
+        got = {"batched_lanes": c["sample_whites.batched_lanes"],
+               "looped_lanes": c["sample_whites.looped_lanes"],
+               "launches": c["herm_white_cuda.launches"]}
+        phase(f"phase 18c [{card}] pipeline {nsims} sims: {got} (expected "
+              f"{lanes} batched lanes, 0 looped, {calls} launches); "
+              f"θ̂ {float(res.theta[0]):.5f} ± {float(res.sigma[0]):.5f}, "
+              f"{len(res.history)} iterations, {wall:.2f} s")
+        if got != {"batched_lanes": lanes, "looped_lanes": 0,
+                   "launches": calls}:
+            raise AssertionError(f"phase 18c: pipeline {nsims}: {got}")
+        out[nsims] = {**got, "wall_s": wall}
+    return out
+
+
+def phase18(card, dev):
+    """The batched hermitian white sampler: 18a bitwise against the loop,
+    18b its times, 18c the pipelines' counters. Raises if a case of 18a
+    differs (after printing every case)."""
+    fails, max_abs_err = whites18(card, dev)
+    times = times18(card, dev)
+    pipes = pipelines18(card, dev)
+    if fails:
+        raise AssertionError("phase 18a: " + "; ".join(fails))
+    return {"times": times, "pipelines": pipes, "max_abs_err": max_abs_err}
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3339,6 +3562,8 @@ def main():
     phase(f"phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     runs17 = phase17(card)
     phase(f"phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+    white18 = phase18(card, dev)
+    phase(f"phases 1-18 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -3410,7 +3635,18 @@ def main():
         "max_abs_err": abs_err_fused,
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": fused_bound,
         "bound_by": fused_by, "library_ms": None,
-        "launches_by_path": by_path["spectrum_quadform_and_grad"]}]}))
+        "launches_by_path": by_path["spectrum_quadform_and_grad"]}, {
+        "name": "herm_white", "route": "cuda",
+        "source": "muse_tpu_torch/csrc/herm_white.cu", "replaces": None,
+        "launches": sum(p["launches"]
+                        for p in white18["pipelines"].values()),
+        "max_abs_err": white18["max_abs_err"],
+        "ms": white18["times"][1]["ms"],
+        "plain_ms": white18["times"][1]["loop_ms"],
+        "bound_ms": white18["times"][1]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": {f"pipeline_{k}_sims": p["launches"]
+                             for k, p in white18["pipelines"].items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,8 +45,8 @@ import torch
 from ..adapters.simple import SimpleMuseProblem
 from ..utils.keys import lane_generator
 from .grf import (GrfConfig, _field_share, _herm_white_draw,
-                  _herm_white_tensors, _host, _packed_diag_pcg,
-                  _set_field, pack_field_host)
+                  _herm_white_tensors, _herm_whites_hook, _host,
+                  _packed_diag_pcg, _set_field, pack_field_host)
 
 __all__ = ["band_edges", "bandpower_problem", "bandpower_mle"]
 
@@ -222,6 +222,8 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
         sample_white=sample_white, x_of_white=x_of_white)
     prob.name = "bandpower_problem"
     prob.grf_config = cfg
+    if dev.type == "cuda":
+        prob.sample_whites_batched = _herm_whites_hook(n, coeffs, cols, None)
     _set_field(prob, mesh, cols, 2 * n * nr)
     prob.nbands = nbands
     prob.band_edges = edges

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
+from ..ops.herm_white import herm_white_batched
+from ..ops.herm_white import herm_white_draw as _herm_white_draw
 from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.keys import lane_generator
@@ -95,18 +97,21 @@ def _herm_white_tensors(n: int, device) -> tuple:
     return tuple(torch.tensor(v, device=device) for v in _herm_white_coeffs(n))
 
 
-def _herm_white_draw(gen: torch.Generator, n: int, coeffs) -> torch.Tensor:
-    a, b, c, d = coeffs
-    shape = (n, n // 2 + 1)
-    g = torch.randn(shape, generator=gen, device=a.device)
-    h = torch.randn(shape, generator=gen, device=a.device)
-
-    def flip(v):                              # r → (n − r) mod n
-        return torch.roll(v.flip(0), 1, dims=0)
-
-    re = a * g + b * flip(g)
-    im = c * h + d * flip(h)
-    return torch.cat([re.reshape(-1), im.reshape(-1)])
+def _herm_whites_hook(n: int, coeffs, cols, x_parts):
+    """A packed model's ``sample_whites_batched(seeds, x_only)`` (problem.py):
+    each lane's two hermitian whites, cut to ``cols``, for all lanes at once
+    (:func:`~muse_tpu_torch.ops.herm_white.herm_white_batched`). With
+    ``x_only`` it draws only the parts ``x_parts`` names (all of them when
+    None) and returns None for the others; every lane's generator is fresh,
+    so a part left undrawn changes none drawn before it."""
+    def sample_whites_batched(seeds, x_only: bool = False):
+        parts = x_parts if x_only and x_parts is not None else (0, 1)
+        W = [None, None]
+        for p, w in zip(parts, herm_white_batched(seeds, n, coeffs, parts,
+                                                   cols)):
+            W[p] = w
+        return tuple(W)
+    return sample_whites_batched
 
 
 def hermitian_white_packed(gen: torch.Generator, n: int) -> torch.Tensor:
@@ -635,10 +640,10 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
       * ``noise="marginal"`` (default): x̃ = √(C+σ²)·w₁ and the conditional
         ũ|x̃ = (√C/(C+σ²))·x̃ + √(σ²/(C+σ²))·w₂, with w₁, w₂ hermitian
         white draws (:func:`hermitian_white_packed`). x depends on w₁ alone
-        (``x_white_parts = (0,)``), so the iteration neither keeps w₂
-        resident nor computes ũ. ``"direct"``: x̃ = √C·ũ + σ·ẽ from the same
-        sampler. ``"fft"``: the two whites are packed rfft2s of pixel
-        normals.
+        (``x_white_parts = (0,)``), so the iteration neither draws nor
+        keeps w₂ and never computes ũ. ``"direct"``: x̃ = √C·ũ + σ·ẽ from
+        the same sampler. ``"fft"``: the two whites are packed rfft2s of
+        pixel normals.
       * ``solver="cg"``: the batched PCG of ``ops/cg.py`` with A = 1 + C/σ²
         and M⁻¹ = 1/A; its operator and curvature (Ap, pᵀAp) come from the
         fused ``spectrum_quadform_and_grad`` kernel on a card.
@@ -661,9 +666,15 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     lane and every constant: x, z, the whites and C are (…, n/f · 2m)
     slices, the kernels run on (B, n/f, 2m), and the solver sums the
     θ-score and the PCG's dot products over the field axis. The whites are
-    drawn whole from each lane's generator and cut to the rank's rows, so
-    every sim is the one drawn without a mesh; the data are drawn whole
-    too. ``solver="lbfgs"`` cannot take a field axis.
+    each lane's generator's draw cut to the rank's rows, so every sim is the
+    one drawn without a mesh; the data are drawn whole too.
+    ``solver="lbfgs"`` cannot take a field axis.
+
+    On a card, ``prob.sample_whites_batched`` (noise ``"marginal"`` and
+    ``"direct"``) draws the whites of every lane of a
+    ``CompiledProblem.sample_whites`` call at once: one launch of
+    ``csrc/herm_white.cu``, bitwise the lanes' own generators
+    (``ops/herm_white.py``). On the CPU the lanes are drawn one by one.
 
     ``grf_spectral_problem.host_syncs`` counts the blocking device→host
     reads of the build and of ``prob.unpack_field``: the packing weights
@@ -804,6 +815,9 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         x_white_parts=(0,) if noise == "marginal" else None)
     prob.name = "grf_spectral_problem"
     prob.grf_config = cfg
+    if noise != "fft" and dev.type == "cuda":
+        prob.sample_whites_batched = _herm_whites_hook(n, coeffs, cols,
+                                                       prob.x_white_parts)
     _set_field(prob, mesh, cols, 2 * n * nr)
     prob.x_real = unpack_field(x_obs)     # for closed-form oracles
     prob.pack_field = pack_field

@@ -7,6 +7,8 @@ from .grf_spectrum import (SpectrumQuadform, SpectrumQuadforms, pack_rfft2,
                            spectrum_quadform_cuda, spectrum_quadform_plain,
                            spectrum_quadforms, spectrum_quadforms_cuda,
                            spectrum_quadforms_plain)
+from .herm_white import (herm_white_batched, herm_white_cuda,
+                         herm_white_plain)
 from .lbfgs import LbfgsResult, batched_lbfgs
 from .newton_cg import NewtonCgResult, batched_newton_cg
 from .varpro import VarproResult, batched_varpro
@@ -19,4 +21,5 @@ __all__ = ["BatchedCgResult", "batched_cg", "LbfgsResult", "batched_lbfgs",
            "spectrum_quadform_and_grad_plain", "spectrum_quadform_cuda",
            "spectrum_quadform_plain", "SpectrumQuadforms",
            "spectrum_quadforms", "spectrum_quadforms_cuda",
-           "spectrum_quadforms_plain"]
+           "spectrum_quadforms_plain", "herm_white_batched",
+           "herm_white_cuda", "herm_white_plain"]

@@ -105,4 +105,8 @@ def load_library() -> ctypes.CDLL:
                                                         ll, ll, ctypes.c_int,
                                                         vp]
     lib.muse_spectrum_quadform_and_grad_f32.restype = ctypes.c_int
+    ci = ctypes.c_int
+    lib.muse_herm_white_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci,
+                                        ll, ci, ci, ci, ll, ll, vp]
+    lib.muse_herm_white_f32.restype = ci
     return lib

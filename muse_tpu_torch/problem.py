@@ -91,6 +91,13 @@ class MuseProblem:
     #: others; ``x_of_white`` then returns ``(x, None)``.
     x_white_parts: Optional[Tuple[int, ...]] = None
 
+    #: optional ``sample_whites_batched(seeds, x_only) -> W``: the whites of
+    #: every lane of ``seeds`` at once, a tuple of (B, …) tensors equal lane
+    #: by lane to ``sample_white(lane_generator(seed))``; with ``x_only`` the
+    #: parts outside ``x_white_parts`` are None. ``CompiledProblem``'s
+    #: ``sample_whites`` takes it where it exists, else loops over the lanes.
+    sample_whites_batched = None
+
     #: the model's name for messages (a model constructor sets it).
     name: Optional[str] = None
 

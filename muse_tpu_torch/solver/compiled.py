@@ -22,7 +22,8 @@ ride as the lane whose global id is 0 in ``muse_step``
 (``[nothing; split_rng(rng, nsims)]``, src/muse.jl:169). Per-lane
 θ-gradients are ``torch.func.vmap(torch.func.grad(log_like))``, so a
 kernel with a ``vmap`` rule (``ops/grf_spectrum.py``) sees every lane in
-one launch. Sampling is a loop over the lanes' generators.
+one launch. Sampling is a loop over the lanes' generators, or one batched
+draw where the problem has ``sample_whites_batched``.
 
 The latent MAPs of a problem without its own ``custom_zhat`` are one
 :func:`~muse_tpu_torch.ops.lbfgs.batched_lbfgs` over all lanes, on
@@ -65,6 +66,7 @@ collective runs inside a ``torch.func`` transform.
 from __future__ import annotations
 
 import inspect
+from types import SimpleNamespace
 
 import torch
 from torch.func import grad, grad_and_value, hessian, jacfwd, jvp, vmap
@@ -78,7 +80,12 @@ from ..utils import trace
 from ..utils.keys import lane_generator
 from ..utils.tree import TreeSpec, tree_map
 
-__all__ = ["CompiledProblem"]
+__all__ = ["CompiledProblem", "sample_whites_counts"]
+
+#: the lanes :meth:`CompiledProblem.sample_whites` drew through a problem's
+#: ``sample_whites_batched`` and through the per-lane loop. They are kept
+#: here, not on the method, which a caller may wrap.
+sample_whites_counts = SimpleNamespace(batched_lanes=0, looped_lanes=0)
 
 
 def _lane(tree, i):
@@ -313,8 +320,16 @@ class CompiledProblem:
 
         ``x_only`` keeps only the parts that x depends on and puts None in
         place of the others, so a part the iteration never reads is not
-        kept resident."""
+        kept resident. A problem with ``sample_whites_batched`` draws every
+        lane at once through it; any other loops over the lanes'
+        generators. :data:`sample_whites_counts` counts the lanes drawn
+        each way."""
         self._require_whites("sample_whites")
+        batched = getattr(self.problem, "sample_whites_batched", None)
+        if batched is not None:
+            sample_whites_counts.batched_lanes += len(seeds)
+            return tuple(batched(seeds, x_only))
+        sample_whites_counts.looped_lanes += len(seeds)
         lanes = []
         for s in seeds:
             W = tuple(self.problem.sample_white(

@@ -114,9 +114,11 @@ def counters() -> dict:
     from ..models.grf import grf_spectral_problem
     from ..ops import grf_spectrum as gs
     from ..ops.cg import batched_cg
+    from ..ops.herm_white import herm_white_cuda
     from ..ops.lbfgs import batched_lbfgs
     from ..ops.newton_cg import batched_newton_cg
     from ..ops.varpro import batched_varpro
+    from ..solver.compiled import sample_whites_counts
     from ..solver.covariance import finalize_result
     from ..solver.jacobians import get_H, get_J
     from ..solver.muse import muse_fit
@@ -136,6 +138,9 @@ def counters() -> dict:
          gs.spectrum_quadform_and_grad_cuda, ("launches",)),
         ("SpectrumQuadform", gs.SpectrumQuadform, ("evaluations",)),
         ("SpectrumQuadforms", gs.SpectrumQuadforms, ("evaluations",)),
+        ("herm_white_cuda", herm_white_cuda, ("launches",)),
+        ("sample_whites", sample_whites_counts,
+         ("batched_lanes", "looped_lanes")),
         ("muse_fit", muse_fit, ("host_syncs",)),
         ("get_J", get_J, ("host_syncs",)),
         ("get_H", get_H, ("host_syncs",)),

@@ -153,14 +153,16 @@ def test_quadforms_cpu_tensors_take_the_plain_version():
 
 # every (B, K) a θ-score launches at 1024²: the amplitude's lane counts at
 # K = 1 (fit chunks of 128, 101 and 1, the stencils' 20 and 40, the A/B's
-# 17, a sims axis's 64), the tilt's at K = 2 (the calibration study's fit
-# chunk of 101 and the tests' widths), a field axis's rows (512 of 1024)
-# at 128, 101 and 20 lanes; then ragged shapes and K = 3, 4
+# 17, a sims axis's 64, the 64-sim fit's one chunk of 65), the tilt's at
+# K = 2 (the calibration study's fit chunk of 101 and the tests' widths), a
+# field axis's rows (512 of 1024) at 128, 101 and 20 lanes; then ragged
+# shapes and K = 3, 4
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,n,rows", [
     (1, 1, 1024, None), (17, 1, 1024, None), (20, 1, 1024, None),
     (40, 1, 1024, None), (64, 1, 1024, None), (101, 1, 1024, None),
-    (128, 1, 1024, None), (101, 2, 1024, None), (5, 2, 1024, None),
+    (128, 1, 1024, None), (65, 1, 1024, None), (101, 2, 1024, None),
+    (5, 2, 1024, None),
     (1, 2, 1024, None), (128, 1, 1024, 512), (101, 1, 1024, 512),
     (20, 1, 1024, 512), (3, 1, 100, None), (5, 3, 33, None),
     (6, 4, 100, None), (7, 2, 33, 20)])
@@ -217,7 +219,7 @@ def _band_weight(n, nbands, device, sigma_noise=0.01):
 # 25 lanes), a field axis of 2 halves the rows (the north star's 128, 1
 # and 51 lanes, the bandpower fit's 101 and its H's 5); last, the
 # calibration studies' implicit H of 8 pixel-GRF sims and the 6-band
-# bandpower fit (49 lanes) and H (6)
+# bandpower fit (49 lanes) and H (6); the 64-sim fit's one chunk of 65
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,bands,rows", [
     (1, 1024, 0, None), (5, 1024, 0, None), (10, 1024, 0, None),
@@ -227,7 +229,8 @@ def _band_weight(n, nbands, device, sigma_noise=0.01):
     (5, 33, 0, None), (64, 1024, 0, None), (26, 1024, 0, None),
     (25, 1024, 0, None), (128, 1024, 0, 512), (1, 1024, 0, 512),
     (51, 1024, 0, 512), (101, 1024, 12, 512), (5, 1024, 12, 512),
-    (8, 1024, 0, None), (49, 1024, 6, None), (6, 1024, 6, None)])
+    (8, 1024, 0, None), (49, 1024, 6, None), (6, 1024, 6, None),
+    (65, 1024, 0, None)])
 def test_fused_kernel_matches_plain(cuda, B, n, bands, rows):
     """quad within 1e-5 relative of a float64 sum, half_grad bitwise
     ``z * w``, and a bitwise-equal rerun (no atomics)."""

@@ -84,7 +84,9 @@ def test_counters_list_every_counter():
         "spectrum_quadforms_cuda.launches",
         "spectrum_quadform_and_grad_cuda.launches",
         "SpectrumQuadform.evaluations", "SpectrumQuadforms.evaluations",
-        "muse_fit.host_syncs", "get_J.host_syncs", "get_H.host_syncs",
+        "herm_white_cuda.launches", "sample_whites.batched_lanes",
+        "sample_whites.looped_lanes", "muse_fit.host_syncs",
+        "get_J.host_syncs", "get_H.host_syncs",
         "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
 
 
