@@ -35,17 +35,26 @@ here.)
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
+from ..utils import trace
 from ..utils.keys import lane_generator
 from .grf import GrfConfig, _host, _pack_spectrum, _unpack_spectrum
 
 __all__ = ["lensing_problem", "bilinear_warp", "gradient_field",
-           "taylor_lens"]
+           "taylor_lens", "zhat_varpro_counts"]
+
+#: VarPro's two-phase MAP (``zhat_varpro``) over every lensing problem of
+#: the process: the calls that entered the Newton-CG polish, the lanes
+#: handed to it, and the lanes returned with ``converged`` false (frozen
+#: at their budget, or failed)
+zhat_varpro_counts = SimpleNamespace(polish_entries=0, polished_lanes=0,
+                                     frozen_lanes=0)
 
 
 def bilinear_warp(field: torch.Tensor, dx: torch.Tensor,
@@ -497,6 +506,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
     # one at field sizes where memory binds (the reduced problem converges
     # in tens of iterations)
     m_eff = varpro_m if varpro_m is not None else (10 if n < 512 else 5)
+    counts = zhat_varpro_counts
 
     def zhat_varpro(xs, Z0, th_flat, atol, field=None):
         """Two-phase MAP: VarPro for the bulk, a Newton-CG polish for the
@@ -505,7 +515,11 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         finish with warm-started trust-region Newton-CG, whose local
         quadratic convergence is what an iterate near the solution needs
         (converged lanes freeze at polish entry). The polish runs only
-        when a lane is left: one host read decides.
+        when a lane is left: one host read decides. The VarPro phase runs
+        in the span ``muse.varpro.solve`` and the polish in
+        ``muse.varpro.polish``; :data:`zhat_varpro_counts` counts the
+        polished and the frozen lanes (a polish adds one read for the
+        latter).
 
         ``field``: on the gathered route of a field axis, Z0 and the
         result are this rank's columns of the joint latent, and both
@@ -514,43 +528,59 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         B = Z0.shape[0]
         ops = varpro_ops(th_flat)
         on_cols = field is not None and field.mesh is not None
-        if on_cols:
-            res = _varpro_on_columns(ops, xs, field.gather(Z0), atol, field)
-        else:
-            Zt0 = _pack(_rfft2(Z0[:, n2:].reshape(B, n, n)))
-            res = batched_varpro(
-                ops["obs_op"], xs, Z0[:, :n2], Zt0, sigma2=s2, g_atol=atol,
-                max_outer=gn_max_outer, inner_maxiter=inner_cg_eff,
-                max_ls=varpro_max_ls, m=m_eff,
-                precond_lin=ops["precond_lin"], lin_sup=ops["lin_sup"],
-                lin_ops=ops["lin_ops"] if varpro_explicit_adjoint else None)
-        uz_hat = _irfft2(_unpack(res.z_lin)).reshape(B, -1)
-        Z = torch.cat([res.u_nl, uz_hat], -1)
-        del uz_hat
+        with trace.span("muse.varpro.solve"):
+            if on_cols:
+                res = _varpro_on_columns(ops, xs, field.gather(Z0), atol,
+                                         field)
+            else:
+                Zt0 = _pack(_rfft2(Z0[:, n2:].reshape(B, n, n)))
+                res = batched_varpro(
+                    ops["obs_op"], xs, Z0[:, :n2], Zt0, sigma2=s2,
+                    g_atol=atol, max_outer=gn_max_outer,
+                    inner_maxiter=inner_cg_eff, max_ls=varpro_max_ls,
+                    m=m_eff, precond_lin=ops["precond_lin"],
+                    lin_sup=ops["lin_sup"],
+                    lin_ops=(ops["lin_ops"] if varpro_explicit_adjoint
+                             else None))
+            uz_hat = _irfft2(_unpack(res.z_lin)).reshape(B, -1)
+            Z = torch.cat([res.u_nl, uz_hat], -1)
+            del uz_hat
 
-        # Exact certificate: one value and gradient of the joint objective
-        # gives the TRUE sup-norm. It decides polish entry and is what aux
-        # reports, so downstream consumers (implicit-diff get_H
-        # stationarity, non-convergence warnings) see real gradients.
-        vg = _vg_full(xs, th_flat)
-        f_true, g_true = vg(Z)
-        sup_true = g_true.abs().amax(-1)
-        del g_true
-        conv_true = sup_true < torch.as_tensor(atol, dtype=sup_true.dtype,
-                                               device=sup_true.device)
-        aux = {"converged": conv_true, "failed": res.failed,
-               "iterations": res.iterations,
-               "cg_iterations": res.inner_iterations,
-               "g_norm": sup_true, "neg_logp": f_true}
-        if bool((conv_true | res.failed).all()):
+            # Exact certificate: one value and gradient of the joint
+            # objective gives the TRUE sup-norm. It decides polish entry
+            # and is what aux reports, so downstream consumers
+            # (implicit-diff get_H stationarity, non-convergence warnings)
+            # see real gradients.
+            vg = _vg_full(xs, th_flat)
+            f_true, g_true = vg(Z)
+            sup_true = g_true.abs().amax(-1)
+            del g_true
+            conv_true = sup_true < torch.as_tensor(
+                atol, dtype=sup_true.dtype, device=sup_true.device)
+            aux = {"converged": conv_true, "failed": res.failed,
+                   "iterations": res.iterations,
+                   "cg_iterations": res.inner_iterations,
+                   "g_norm": sup_true, "neg_logp": f_true}
+            # one read gives the lanes left for the polish and, where none
+            # is, the lanes returned unconverged (the failed ones)
+            left, unconv = torch.stack([
+                (~(conv_true | res.failed)).sum(),
+                (~conv_true).sum()]).tolist()
+        if not left:
+            counts.frozen_lanes += unconv
             return (field.keep(Z) if on_cols else Z), aux
         zhat_varpro.polish_entries += 1
-        pol = _newton(xs, field.keep(Z) if on_cols else Z, th_flat, atol,
-                      field, polish_max_outer)
-        aux = {"converged": pol.converged, "failed": res.failed & pol.failed,
-               "iterations": res.iterations + pol.iterations,
-               "cg_iterations": res.inner_iterations + pol.cg_iterations,
-               "g_norm": pol.g_norm, "neg_logp": pol.f}
+        counts.polish_entries += 1
+        counts.polished_lanes += left
+        with trace.span("muse.varpro.polish"):
+            pol = _newton(xs, field.keep(Z) if on_cols else Z, th_flat,
+                          atol, field, polish_max_outer)
+            aux = {"converged": pol.converged,
+                   "failed": res.failed & pol.failed,
+                   "iterations": res.iterations + pol.iterations,
+                   "cg_iterations": res.inner_iterations + pol.cg_iterations,
+                   "g_norm": pol.g_norm, "neg_logp": pol.f}
+            counts.frozen_lanes += int((~pol.converged).sum())
         return pol.z, aux
 
     zhat_varpro.polish_entries = 0

@@ -80,7 +80,8 @@ def batched_cg(
         vectors are whole and the loop is what it always was. A given
         ``b_norm`` must already be global.
 
-    ``batched_cg.curvature_steps`` counts the loop steps that called
+    ``batched_cg.steps`` counts the loop steps, whatever the operator,
+    ``batched_cg.curvature_steps`` those that called
     ``matvec_and_curvature``, and ``batched_cg.host_syncs`` the host's
     blocking reads of ``all(done)``: one at each check point the loop
     reaches (steps 0, 1, 2, 4, 8, then every ``_CHECK_EVERY``).
@@ -129,6 +130,7 @@ def batched_cg(
             if bool(done.all()):
                 break
             next_check = max(1, k + min(k, _CHECK_EVERY))
+        batched_cg.steps += 1
         if matvec_and_curvature is not None:
             Ap, pAp = matvec_and_curvature(p)
             batched_cg.curvature_steps += 1
@@ -153,5 +155,6 @@ def batched_cg(
                            iterations=iters)
 
 
+batched_cg.steps = 0
 batched_cg.curvature_steps = 0
 batched_cg.host_syncs = 0

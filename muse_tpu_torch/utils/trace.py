@@ -112,6 +112,7 @@ def summary() -> dict:
 def counters() -> dict:
     """Every counter the port keeps, by ``<function>.<counter>``."""
     from ..models.grf import grf_spectral_problem
+    from ..models.lensing import zhat_varpro_counts
     from ..ops import grf_spectrum as gs
     from ..ops.cg import batched_cg
     from ..ops.herm_white import herm_white_cuda
@@ -124,13 +125,16 @@ def counters() -> dict:
     from ..solver.muse import muse_fit
 
     sites = (
-        ("batched_cg", batched_cg, ("curvature_steps", "host_syncs")),
+        ("batched_cg", batched_cg,
+         ("steps", "curvature_steps", "host_syncs")),
         ("batched_lbfgs", batched_lbfgs,
          ("iterations", "ls_evaluations", "host_syncs")),
         ("batched_varpro", batched_varpro,
          ("iterations", "ls_trials", "inner_steps", "host_syncs")),
         ("batched_newton_cg", batched_newton_cg,
          ("iterations", "cg_steps", "hvps", "host_syncs")),
+        ("zhat_varpro", zhat_varpro_counts,
+         ("polish_entries", "polished_lanes", "frozen_lanes")),
         ("spectrum_quadform_cuda", gs.spectrum_quadform_cuda, ("launches",)),
         ("spectrum_quadforms_cuda", gs.spectrum_quadforms_cuda,
          ("launches",)),

@@ -74,13 +74,16 @@ def test_spans_do_not_change_the_fit(spans_on):
 
 def test_counters_list_every_counter():
     assert set(trace.counters()) == {
-        "batched_cg.curvature_steps", "batched_cg.host_syncs",
+        "batched_cg.steps", "batched_cg.curvature_steps",
+        "batched_cg.host_syncs",
         "batched_lbfgs.iterations", "batched_lbfgs.ls_evaluations",
         "batched_lbfgs.host_syncs", "batched_varpro.iterations",
         "batched_varpro.ls_trials", "batched_varpro.inner_steps",
         "batched_varpro.host_syncs", "batched_newton_cg.iterations",
         "batched_newton_cg.cg_steps", "batched_newton_cg.hvps",
-        "batched_newton_cg.host_syncs", "spectrum_quadform_cuda.launches",
+        "batched_newton_cg.host_syncs", "zhat_varpro.polish_entries",
+        "zhat_varpro.polished_lanes", "zhat_varpro.frozen_lanes",
+        "spectrum_quadform_cuda.launches",
         "spectrum_quadforms_cuda.launches",
         "spectrum_quadform_and_grad_cuda.launches",
         "SpectrumQuadform.evaluations", "SpectrumQuadforms.evaluations",
@@ -105,6 +108,7 @@ def test_cg_reads_done_at_each_check_point(maxiter, checks):
     c = _delta(c0, trace.counters())
     assert c["batched_cg.host_syncs"] == checks
     assert c["batched_cg.curvature_steps"] == maxiter
+    assert c["batched_cg.steps"] == maxiter
     assert int(res.iterations.max()) == maxiter
 
 
