@@ -171,13 +171,14 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      9, 17, 33 and 65 (seconds per lane, peak memory), and the fit runs at
      the fastest. Per step: the lanes' VarPro outer iterations (min,
      median, max), inner CG iterations, line-search trials, polish
-     entries with their Newton and Steihaug counts, host syncs, seconds;
-     then the fit, J and H walls, the peak memory and a profile of one
+     entries with their Newton and Steihaug counts, host syncs, each lens
+     pass's launches, seconds; then the fit, J and H walls, the peak memory and a profile of one
      warm step (busy share, top operators, the FFTs' share). It fails
      unless |θ̂ − 0.3| < 3σ (the demo's own assert), σ is finite and
      positive, the fit went through ``muse_step_white`` only and no lane
      is flagged ``failed`` (lanes frozen unconverged are the reference's
-     designed behaviour: counted, not failed). The pipeline runs again
+     designed behaviour: counted, not failed) and every fit step launched
+     the lens passes' kernels. The pipeline runs again
      with the MAPs solved to 1e-3 and 1e-4 (θ̂, σ, counts and walls,
      reported and not gated). Newton-CG, which that fit never enters, runs
      on the fit's chunk at full width: ``solver="newton"`` cut at 3 outer
@@ -334,6 +335,17 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      sims), the counters read around each: every lane batched (564 and
      73), none looped, one kernel launch a ``sample_whites`` call (6 and
      2).
+ 19. the lens operator's four passes (``ops/lens_planes.py``,
+     ``csrc/lens_planes.cu``) at the lensing cell's 65 lanes × 1024², on
+     the model's own spectral scale, deflections and draws: expand,
+     combine, its residual form without r (the reduced gradient's) and
+     with r (the certificate's), spread and contract, each against its
+     plain version evaluated in float64 (≤ 1e-6 of the largest entry;
+     the residual form's Σr² a lane ≤ 1e-5 relative), a rerun bitwise
+     equal, lane 0 bitwise its launch alone, and each kernel's CUDA-event
+     time beside its bound and the plain version's float32 time. Phase 11
+     holds the adjoint identity and the lane-in-a-batch MAP on the same
+     passes, since ``lin_ops`` and ``zhat_varpro`` run through them.
 
 A recorder in place of each kernel wrapper keeps every input shape
 launched (``record_kernel_shapes``); after phase 18 the run fails if a
@@ -911,15 +923,22 @@ def clamp_steps(theta0, width=0.3):
     return regularize
 
 
+#: the lens operator's four passes (``ops/lens_planes.py``), phase 19
+LENS_PASSES = ("expand", "combine", "residual", "spread", "contract")
+
+
 def lensing_counts():
     """The counters of the lensing MAP solvers, as a dict."""
+    from muse_tpu_torch.ops import lens_planes as lp
     from muse_tpu_torch.ops.newton_cg import batched_newton_cg as nc
     from muse_tpu_torch.ops.varpro import batched_varpro as vp
     return {"outer": vp.iterations, "ls_trials": vp.ls_trials,
             "inner_steps": vp.inner_steps,
             "syncs": vp.host_syncs + nc.host_syncs,
             "newton": nc.iterations, "steihaug": nc.cg_steps,
-            "hvps": nc.hvps}
+            "hvps": nc.hvps,
+            **{k: getattr(lp, f"lens_{k}_cuda").launches
+               for k in LENS_PASSES}}
 
 
 def phase11(card, dev):
@@ -1155,7 +1174,8 @@ def phase12(card, dev):
               f"({c['newton']} Newton iterations, {c['steihaug']} Steihaug "
               f"steps, {c['hvps']} HVPs), {c['syncs']} host syncs, "
               f"{c['converged']}/{c['lanes']} converged, {c['failed']} "
-              f"failed")
+              f"failed; lens-plane launches "
+              f"{ {k: c[k] for k in LENS_PASSES} }")
     th, sig = float(res.theta[0]), float(res.sigma[0])
     unconv = [int((~h["map_converged"]).sum()) for h in res.history]
     failed = [int(h["map_failed"].sum()) for h in res.history]
@@ -1179,6 +1199,9 @@ def phase12(card, dev):
                              f"{THETA_TRUE4}")
     if any(failed):
         raise AssertionError(f"lanes flagged failed, by step: {failed}")
+    if not all(c[k] >= 1 for c in calls[:fit_calls] for k in LENS_PASSES):
+        raise AssertionError("a fit step of the lensing model left a "
+                             "lens-plane kernel unlaunched")
 
     # the same pipeline with the MAPs solved tighter than the demo's 3e-3,
     # which ends most 1024² solves within two VarPro iterations: what the
@@ -1293,7 +1316,105 @@ def phase12(card, dev):
           f"VarPro run's J and implicit H)")
     if not spread < 0.5 * found["sigma"]:
         raise AssertionError(f"the solvers disagree: {found}")
+    found["lens_launches"] = {k: sum(c[k] for c in calls[:fit_calls])
+                              for k in LENS_PASSES}
     return found
+
+
+def phase19(card, dev):
+    """The lens operator's four passes (``ops/lens_planes.py``,
+    ``csrc/lens_planes.cu``) at the lensing cell's shapes, 65 lanes ×
+    1024², on the model's own values (``varpro_ops`` at θ = 0.3: its
+    spectral scale and the deflection of a drawn potential; x and z̃ drawn
+    by its sampler): each kernel against its plain version evaluated in
+    float64 (max error over the largest entry ≤ 1e-6; the residual form's
+    Σr² a lane ≤ 1e-5 relative), a rerun bitwise equal, lane 0 bitwise
+    its launch alone, and the CUDA-event time of kernel and plain version
+    (float32) beside the bound (bytes read and written once over
+    3.35 TB/s). Returns {pass: its row}."""
+    import torch
+
+    from muse_tpu_torch.models import lensing_problem
+    from muse_tpu_torch.ops import lens_planes as lp
+
+    n, B = N4, NSIMS4 + 1
+    nr, N = n // 2 + 1, n * n
+    m = n * nr
+    prob = lensing_problem(n=n, theta_true=THETA_TRUE4, data_seed=DATA_SEED4,
+                           device=dev)
+    ops = prob.varpro_ops(torch.tensor([THETA_TRUE4], device=dev))
+    g = torch.Generator(device=dev).manual_seed(19)
+    draws = [prob.sample_x_z(g, THETA_TRUE4) for _ in range(B)]
+    xs = torch.stack([x for x, _ in draws])
+    d = ops["deflection"](torch.stack([u["uphi"] for _, u in draws])
+                          .reshape(B, -1))
+    zt = ops["pack"](torch.fft.rfft2(torch.stack([u["uz"] for _, u in
+                                                  draws])))
+    del draws
+    c = ops["scale"]
+    P6 = torch.fft.irfft2(lp.lens_expand(zt, c), s=(n, n))
+    F6 = torch.fft.rfft2(lp.lens_spread(xs, d))
+    f4, plane = 4, 4 * B * N
+    # name: (pass, args, keyword, args shared by the lanes, bytes); the
+    # residual form without r is the one the reduced gradient runs, with r
+    # the certificate's
+    cases = {"expand": ("expand", (zt, c), {}, (1,),
+                        f4 * (B * 2 * m + m) + 8 * B * 6 * m),
+             "combine": ("combine", (P6, d), {}, (), plane * (6 + 2 + 1)),
+             "residual": ("residual", (P6, d, xs), {"keep_r": False}, (),
+                          plane * (6 + 2 + 1 + 2)),
+             "residual_with_r": ("residual", (P6, d, xs), {}, (),
+                                 plane * (6 + 2 + 1 + 1 + 2)),
+             "spread": ("spread", (xs, d), {}, (), plane * (1 + 2 + 6)),
+             "contract": ("contract", (F6, c), {}, (1,),
+                          8 * B * 6 * m + f4 * (m + B * 2 * m))}
+    rows = {}
+    for name, (base, args, kw, shared, nbytes) in cases.items():
+        kernel = getattr(lp, f"lens_{base}_cuda")
+        plain = getattr(lp, f"lens_{base}_plain")
+
+        def outs(out):
+            return [t for t in (out if isinstance(out, tuple) else (out,))
+                    if t is not None]
+
+        def run(*a):
+            return outs(kernel(*a, **kw))
+        got = run(*args)
+        want = outs(plain(*[a.to(torch.complex128 if a.is_complex()
+                                 else torch.float64) for a in args], **kw))
+        errs = [float((k.to(w.dtype) - w).abs().max() / w.abs().max())
+                for k, w in zip(got, want)]
+        if base == "residual":                      # Σr² lane by lane
+            i = len(got) - 2
+            errs[i] = float(((got[i].double() - want[i]).abs()
+                             / want[i].abs()).max())
+        sum_err = errs[len(got) - 2] if base == "residual" else 0.0
+        del want
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, run(*args)))
+        alone = all(torch.equal(a, b[:1]) for a, b in zip(run(*[
+            a if i in shared else a[:1].contiguous()
+            for i, a in enumerate(args)]), got))
+        del got
+        ms = cuda_ms(lambda: kernel(*args, **kw))
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), samples=5,
+                           per_sample=4)
+        bound, _ = least_ms(nbytes, 0)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "share": bound / ms, "max_err": max(errs)}
+        phase(f"phase 19 [{card}] lens_{name} at ({B}, {n}²): errors vs "
+              f"float64 {[f'{e:.2e}' for e in errs]}; rerun bitwise "
+              f"{bitwise}, lane 0 bitwise alone {alone}; kernel {ms:.4f} "
+              f"ms, bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB; "
+              f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+        plane_errs = [e for i, e in enumerate(errs)
+                      if not (base == "residual" and i == len(errs) - 2)]
+        if not (max(plane_errs) <= 1e-6 and sum_err <= 1e-5):
+            raise AssertionError(f"lens_{name} disagrees with its plain "
+                                 f"version: {errs}")
+        if not (bitwise and alone):
+            raise AssertionError(f"lens_{name} is not deterministic lane by "
+                                 f"lane")
+    return rows
 
 
 def phase13(card, dev, field):
@@ -3564,6 +3685,8 @@ def main():
     phase(f"phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     white18 = phase18(card, dev)
     phase(f"phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    lens19 = phase19(card, dev)
+    phase(f"phases 1-19 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -3646,7 +3769,21 @@ def main():
         "bound_ms": white18["times"][1]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "launches_by_path": {f"pipeline_{k}_sims": p["launches"]
-                             for k, p in white18["pipelines"].items()}}]}))
+                             for k, p in white18["pipelines"].items()}}] + [{
+        "name": f"lens_{k}", "route": "cuda",
+        "source": "muse_tpu_torch/csrc/lens_planes.cu", "replaces": None,
+        "launches": lensing12["lens_launches"][k],
+        "max_abs_err": max(row["max_err"] for row in rows),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        **({"ms_with_r": rows[1]["ms"], "bound_ms_with_r":
+            rows[1]["bound_ms"]} if len(rows) > 1 else {}),
+        "launches_by_path": {"slice4_lensing_fit":
+                             lensing12["lens_launches"][k]}}
+        for k, rows in ((k, [lens19[r] for r in lens19
+                             if r.split("_")[0] == k])
+                        for k in LENS_PASSES)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

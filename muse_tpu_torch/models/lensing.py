@@ -27,7 +27,10 @@ them, so one ``torch.fft`` call serves all lanes. The forward from
 the six z-planes (z, z_x, z_y, z_xx, z_yy, z_xy) and one of the two
 deflection planes. The explicit operator pair of the VarPro inner solve is
 one ``irfft2`` of six planes for G and one ``rfft2`` of six planes for Gᵀ,
-with the deflection's two calls paid once per inner solve. (The JAX
+with the deflection's two calls paid once per inner solve; every
+elementwise step around them is one of ``ops/lens_planes.py``'s passes
+(hand-written kernels on a card), and VarPro's reduced gradient and its
+certificate are explicit adjoints built from the same passes. (The JAX
 package splits the planes 3 + 3 and pads the deflection stack with a zero
 plane for a TPU FFT rule and for ``jax.linear_transpose``; neither applies
 here.)
@@ -42,6 +45,9 @@ import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
+from ..ops.lens_planes import (derivative_diagonals, herm_sym, k_grids,
+                               lens_combine, lens_contract, lens_expand,
+                               lens_residual, lens_spread)
 from ..utils import trace
 from ..utils.keys import lane_generator
 from .grf import GrfConfig, _host, _pack_spectrum, _unpack_spectrum
@@ -78,66 +84,10 @@ def bilinear_warp(field: torch.Tensor, dx: torch.Tensor,
             + fi * (1 - fj) * field[i1, j0] + fi * fj * field[i1, j1])
 
 
-def _k_grids(n: int, device) -> tuple:
-    """(ky (n, 1), kx (1, n//2+1)) in radians per pixel, float32."""
-    ky = np.fft.fftfreq(n)[:, None] * 2 * np.pi
-    kx = np.fft.rfftfreq(n)[None, :] * 2 * np.pi
-    return (torch.tensor(ky, dtype=torch.float32, device=device),
-            torch.tensor(kx, dtype=torch.float32, device=device))
-
-
-def _herm_sym(zf: torch.Tensor) -> torch.Tensor:
-    """Orthogonal projection of (…, n, n//2+1) half-spectra onto the
-    hermitian-consistent ones.
-
-    The rfft2 layout's self-conjugate columns (0 and, for even n, the
-    axis-1 Nyquist) store both members of each conjugate pair, so the
-    half-spectrum has ~2n redundant coordinates. ``irfft2`` annihilates
-    the inconsistent directions on a CPU, but its exact adjoint does not
-    land back in the consistent subspace; the off-subspace energy would
-    accumulate in the CG iterates and inflate the ½‖z̃‖² prior, corrupting
-    the objective and the convergence certificate. Symmetrizing makes the
-    redundant directions invisible to the whole operator chain. (The
-    projection commutes with the column-constant √w scaling.)"""
-    n, nr = zf.shape[-2], zf.shape[-1]
-
-    def sym(col):                     # (…, n): rows r and (n − r) % n
-        mirror = torch.conj(torch.roll(col.flip(-1), 1, -1))
-        return (0.5 * (col + mirror))[..., None]
-    if n % 2 == 0:
-        return torch.cat([sym(zf[..., 0]), zf[..., 1:nr - 1],
-                          sym(zf[..., nr - 1])], -1)
-    return torch.cat([sym(zf[..., 0]), zf[..., 1:]], -1)
-
-
-def _derivative_diagonals(n: int, device) -> torch.Tensor:
-    """The (6, n, n//2+1) complex spectral diagonals of (1, ∂x, ∂y, ∂xx,
-    ∂yy, ∂xy): {1, ikx, iky, −kx², −ky², −kx·ky}, made hermitian-consistent.
-
-    At the Nyquist frequencies of an even n an odd multiplier (ikx in the
-    last column, iky at row n/2 of the self-conjugate columns, kx·ky in the
-    last column) turns a consistent spectrum into one that no real field
-    has. A CPU ``irfft2`` drops exactly those entries (they become the
-    imaginary part of a self-conjugate coefficient), but cuFFT's
-    complex-to-real transform is undefined on such input and answers
-    differently from one batch width to the next. Projecting the diagonals
-    themselves (:func:`_herm_sym`) zeroes the entries the CPU transform
-    drops, so both devices compute the same real field."""
-    ky, kx = _k_grids(n, device)
-    one = torch.ones((n, n // 2 + 1), device=device)
-    zero = torch.zeros_like(one)
-    return _herm_sym(torch.stack([torch.complex(one, zero),
-                                  torch.complex(zero, kx * one),
-                                  torch.complex(zero, ky * one),
-                                  torch.complex(-(kx ** 2) * one, zero),
-                                  torch.complex(-(ky ** 2) * one, zero),
-                                  torch.complex(-(kx * ky), zero)]))
-
-
 def gradient_field(phi: torch.Tensor) -> tuple:
     """(∂φ/∂x, ∂φ/∂y) via Fourier ik on the periodic grid."""
     n = phi.shape[-1]
-    K = _derivative_diagonals(n, phi.device)[1:3]
+    K = derivative_diagonals(n, phi.device)[1:3]
     pf = torch.fft.rfft2(phi)
     return torch.fft.irfft2(pf[..., None, :, :] * K, s=(n, n)).unbind(-3)
 
@@ -148,7 +98,7 @@ def taylor_lens(z: torch.Tensor, dx: torch.Tensor,
     standard small-deflection expansion in CMB lensing; every derivative is
     a Fourier ik product."""
     n = z.shape[-1]
-    K = _derivative_diagonals(n, z.device)[1:]
+    K = derivative_diagonals(n, z.device)[1:]
     zf = torch.fft.rfft2(z)
     zx, zy, zxx, zyy, zxy = torch.fft.irfft2(zf[..., None, :, :] * K,
                                              s=(n, n)).unbind(-3)
@@ -203,7 +153,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
     respected.
     """
     from ..ops.newton_cg import batched_newton_cg
-    from ..ops.varpro import batched_varpro, reduced_value_and_grad
+    from ..ops.varpro import batched_varpro
 
     solvers = ("auto", "varpro", "newton", "gn", "lbfgs")
     if solver not in solvers:
@@ -244,9 +194,9 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
     rms0 = float(np.sqrt(np.sum(w64 * (kx64 ** 2 + ky64 ** 2) * C0) / n ** 2))
     phi_norm = defl_scale / max(rms0, 1e-12)
 
-    ky, kx = _k_grids(n, dev)
+    ky, kx = k_grids(n, dev)
     # the spectral diagonals of (z, z_x, z_y, z_xx, z_yy, z_xy)
-    K6 = _derivative_diagonals(n, dev)
+    K6 = derivative_diagonals(n, dev)
     Cz0 = cfg_z.spectrum(0.0)
     Cp0 = cfg_p.spectrum(0.0)
     sqCz = torch.sqrt(Cz0)
@@ -267,10 +217,10 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         return torch.fft.rfft2(field, dim=(-2, -1))
 
     def _deflection(uphi, a_phi):
-        """(dx, dy) of the potential S_φ u_φ: one rfft2, one irfft2 of the
-        two planes."""
+        """The (…, 2, n, n) stack (dx, dy) of the potential S_φ u_φ: one
+        rfft2, one irfft2 of the two planes."""
         pf = (phi_norm * a_phi * sqCp) * _rfft2(uphi)
-        return _irfft2(pf[..., None, :, :] * K6[1:3]).unbind(-3)
+        return _irfft2(pf[..., None, :, :] * K6[1:3])
 
     def _lens_parts_zf(zf_u, uphi, theta):
         # entered from the z-spectrum: the VarPro linear block lives in
@@ -279,7 +229,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         zf = (a_z * sqCz) * zf_u
         z, zx, zy, zxx, zyy, zxy = _irfft2(zf[..., None, :, :] * K6
                                            ).unbind(-3)
-        dx, dy = _deflection(uphi, a_phi)
+        dx, dy = _deflection(uphi, a_phi).unbind(-3)
         lin = dx * zx + dy * zy
         quad = dx * dx * zxx + 2 * dx * dy * zxy + dy * dy * zyy
         return z + lin + 0.5 * quad, lin, quad
@@ -398,12 +348,16 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         return _pack_spectrum(zf, sqw_n)
 
     def _unpack(zt):                      # inverse of _pack ∘ projection
-        return _herm_sym(_unpack_spectrum(zt, sqw_n))
+        return herm_sym(_unpack_spectrum(zt, sqw_n))
 
     def varpro_ops(th_flat):
         """The pieces ``batched_varpro`` runs on at θ: ``obs_op``,
         the explicit ``lin_ops``, ``precond_lin`` and ``lin_sup``, with the
-        packing (``pack``, ``unpack``) of the linear block.
+        packing (``pack``, ``unpack``) of the linear block; from the same
+        passes, the reduced objective ``value_and_grad(xs)`` (its
+        ``f_and_g``) and the joint objective's ``certificate``; and what
+        the passes are handed, the potential's ``deflection`` (dx, dy) and
+        the spectral ``scale`` c.
 
         The linear (unlensed-field) block is handed to the solver in
         PACKED-FOURIER coordinates z̃ = pack(√w/n · rfft2(u_z)), an isometry
@@ -411,41 +365,79 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         prior and the objective is unchanged. Per inner-CG iteration the
         obs_op skips the leading rfft2 (and its transpose the trailing
         one), and the Fourier-diagonal preconditioner is a pointwise
-        multiply."""
+        multiply.
+
+        The lens map at a fixed potential is Σ_j D_j·irfft2(S_j·c·unpack(z̃))
+        with pixel diagonals D_j ∈ {1, dx, dy, ½dx², ½dy², dx·dy} and
+        spectral diagonals S_j ∈ {1, ikx, iky, −kx², −ky², −kx·ky}, so its
+        exact adjoint in packed coordinates is
+        pack(herm_sym(Σ_j conj(S_j)·c·rfft2(D_j·w))): the packing is an
+        isometry, which makes the adjoint of irfft2 pack∘rfft2. Every
+        elementwise step of both is one of ``ops/lens_planes.py``'s four
+        passes (kernels on a card); only the deflection (dx, dy) is kept
+        between them. The deflection is a real convolution of u_φ, so the
+        adjoint of its multiplier c_φ·K_a is the conjugate multiplier: the
+        gradients are explicit, with no autograd tape."""
         a_phi, a_z = _amps(th_flat)
         czs = a_z * sqCz                  # (n, nr) real spectral scale
+        cphi = phi_norm * a_phi * sqCp    # (n, nr) the potential's scale
 
         def obs_op(Up, Zt):
             return _lens_parts_zf(_unpack(Zt),
                                   Up.reshape(Up.shape[:-1] + (n, n)),
                                   th_flat)[0]
 
-        K6z = czs * K6
-        K6z_conj = torch.conj(K6z)
+        def defl(Up):
+            return _deflection(Up.reshape(Up.shape[:-1] + (n, n)), a_phi)
 
         def lin_ops(Up):
-            """Explicit (G, Gᵀ) of the lens operator at a fixed potential.
-
-            The lens map is Σ_j D_j·irfft2(S_j·c·unpack(z̃)) with pixel
-            diagonals D_j ∈ {1, dx, dy, ½dx², ½dy², dx·dy} and spectral
-            diagonals S_j ∈ {1, ikx, iky, −kx², −ky², −kx·ky}, so its exact
-            adjoint in packed coordinates is
-            pack(herm_sym(Σ_j conj(S_j)·c·rfft2(D_j·w))): the packing is
-            an isometry, which makes the adjoint of irfft2 pack∘rfft2. The
-            deflections are computed once per inner solve."""
-            dx, dy = _deflection(Up.reshape(Up.shape[:-1] + (n, n)), a_phi)
-            D = torch.stack([torch.ones_like(dx), dx, dy, 0.5 * dx * dx,
-                             0.5 * dy * dy, dx * dy], -3)
-            del dx, dy
+            """Explicit (G, Gᵀ) of the lens operator at a fixed potential:
+            G = combine(irfft2(expand(z̃))), Gᵀ = contract(rfft2(spread(w))).
+            The deflections are computed once per inner solve."""
+            d = defl(Up)
 
             def G(Zt):
-                zf = _unpack(Zt)
-                return torch.sum(_irfft2(zf[..., None, :, :] * K6z) * D, -3)
+                return lens_combine(_irfft2(lens_expand(Zt, czs)), d)
 
             def Gt(W):
-                F = _rfft2(W[..., None, :, :] * D)
-                return _pack(_herm_sym(torch.sum(F * K6z_conj, -3)))
+                return lens_contract(_rfft2(lens_spread(W, d)), czs)
             return G, Gt
+
+        def residual(xs, d, Zt, keep_r=True):
+            """(r = x − G z̃ or None, Σr² a lane, the (B, 2, n, n)
+            cotangents r·∂F/∂(dx, dy))."""
+            return lens_residual(_irfft2(lens_expand(Zt, czs)), d, xs, keep_r)
+
+        def grad_uphi(Up, A):
+            """∂/∂u_φ of ½‖x − F‖²/σ² + ½‖u_φ‖² from the cotangents A."""
+            back = _irfft2(cphi * (_rfft2(A) * K6[1:3].conj()).sum(-3))
+            return Up - back.reshape(Up.shape) / s2
+
+        def value_and_grad(xs):
+            """``(U, z̃) -> (f, ∂f/∂u_φ)``: the reduced objective
+            ½‖x − G z̃‖²/σ² + ½‖U‖² + ½‖z̃‖² a lane and its envelope gradient
+            at the fixed z̃."""
+            def f_and_g(Up, Zt):
+                _, rr, A = residual(xs, defl(Up), Zt, keep_r=False)
+                f = 0.5 * (rr / s2 + (Up * Up).sum(-1) + (Zt * Zt).sum(-1))
+                return f, grad_uphi(Up, A)
+            return f_and_g
+
+        def certificate(xs, Up, Zt, uz):
+            """(f, ∇f) of the joint objective −log_like over flat
+            [u_φ; u_z] at u_z = ``uz`` (B, n²) = irfft2(unpack(z̃)), from the
+            same passes: ∂/∂u_z = u_z − irfft2(unpack(Gᵀr))/σ², the adjoint
+            of the isometric packing being its inverse."""
+            d = defl(Up)
+            r, rr, A = residual(xs, d, Zt)
+            g_phi = grad_uphi(Up, A)
+            del A
+            back = _irfft2(_unpack(lens_contract(_rfft2(lens_spread(r, d)),
+                                                 czs)))
+            del r, d
+            g_z = uz - back.reshape(uz.shape) / s2
+            f = 0.5 * (rr / s2 + (Up * Up).sum(-1) + (uz * uz).sum(-1))
+            return f, torch.cat([g_phi, g_z], -1)
 
         # the exact Fourier-diagonal preconditioner, a pointwise multiply
         Mz_packed = (1.0 / (1.0 + (a_z ** 2) * Cz0 / s2)).reshape(-1).repeat(2)
@@ -463,7 +455,10 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
 
         return {"obs_op": obs_op, "lin_ops": lin_ops,
                 "precond_lin": precond_lin, "precond_diag": Mz_packed,
-                "lin_sup": lin_sup, "pack": _pack, "unpack": _unpack}
+                "lin_sup": lin_sup, "pack": _pack, "unpack": _unpack,
+                "value_and_grad": value_and_grad,
+                "certificate": certificate, "deflection": defl,
+                "scale": czs}
 
     def _varpro_on_columns(ops, xs, Z0w, atol, field):
         """``batched_varpro`` on the gathered route: u_nl and the packed
@@ -481,7 +476,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
             G, Gt = ops["lin_ops"](uc.gather(Uc))
             return (lambda Zc: G(zc.gather(Zc))), (lambda W: zc.keep(Gt(W)))
 
-        vg = reduced_value_and_grad(ops["obs_op"], xs, s2)
+        vg = ops["value_and_grad"](xs)
 
         def f_and_g(Uc, Zc):
             f, g = vg(uc.gather(Uc), zc.gather(Zc))
@@ -526,6 +521,7 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         solvers keep their vectors as columns (their ``reduce`` hooks);
         the certificate runs on the gathered MAP."""
         B = Z0.shape[0]
+        xs = xs.contiguous()              # the passes take whole planes
         ops = varpro_ops(th_flat)
         on_cols = field is not None and field.mesh is not None
         with trace.span("muse.varpro.solve"):
@@ -541,18 +537,19 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
                     m=m_eff, precond_lin=ops["precond_lin"],
                     lin_sup=ops["lin_sup"],
                     lin_ops=(ops["lin_ops"] if varpro_explicit_adjoint
-                             else None))
+                             else None),
+                    f_and_g=ops["value_and_grad"](xs))
             uz_hat = _irfft2(_unpack(res.z_lin)).reshape(B, -1)
-            Z = torch.cat([res.u_nl, uz_hat], -1)
-            del uz_hat
 
             # Exact certificate: one value and gradient of the joint
             # objective gives the TRUE sup-norm. It decides polish entry
             # and is what aux reports, so downstream consumers
             # (implicit-diff get_H stationarity, non-convergence warnings)
             # see real gradients.
-            vg = _vg_full(xs, th_flat)
-            f_true, g_true = vg(Z)
+            f_true, g_true = ops["certificate"](xs, res.u_nl, res.z_lin,
+                                                uz_hat)
+            Z = torch.cat([res.u_nl, uz_hat], -1)
+            del uz_hat
             sup_true = g_true.abs().amax(-1)
             del g_true
             conv_true = sup_true < torch.as_tensor(

@@ -10,6 +10,8 @@ from .grf_spectrum import (SpectrumQuadform, SpectrumQuadforms, pack_rfft2,
 from .herm_white import (herm_white_batched, herm_white_cuda,
                          herm_white_plain)
 from .lbfgs import LbfgsResult, batched_lbfgs
+from .lens_planes import (lens_combine, lens_contract, lens_expand,
+                          lens_residual, lens_spread)
 from .newton_cg import NewtonCgResult, batched_newton_cg
 from .varpro import VarproResult, batched_varpro
 
@@ -22,4 +24,5 @@ __all__ = ["BatchedCgResult", "batched_cg", "LbfgsResult", "batched_lbfgs",
            "spectrum_quadform_plain", "SpectrumQuadforms",
            "spectrum_quadforms", "spectrum_quadforms_cuda",
            "spectrum_quadforms_plain", "herm_white_batched",
-           "herm_white_cuda", "herm_white_plain"]
+           "herm_white_cuda", "herm_white_plain", "lens_expand",
+           "lens_combine", "lens_residual", "lens_spread", "lens_contract"]

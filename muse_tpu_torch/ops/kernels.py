@@ -109,4 +109,14 @@ def load_library() -> ctypes.CDLL:
     lib.muse_herm_white_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                         ll, ci, ci, ci, ll, ll, vp]
     lib.muse_herm_white_f32.restype = ci
+    lib.muse_lens_slab.argtypes = []
+    lib.muse_lens_slab.restype = ll
+    for name in ("muse_lens_expand_f32", "muse_lens_contract_f32"):
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
+        getattr(lib, name).restype = ci
+    lib.muse_lens_combine_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci,
+                                          vp]
+    lib.muse_lens_combine_f32.restype = ci
+    lib.muse_lens_spread_f32.argtypes = [vp, vp, vp, ll, ci, vp]
+    lib.muse_lens_spread_f32.restype = ci
     return lib

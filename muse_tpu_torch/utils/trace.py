@@ -114,6 +114,7 @@ def counters() -> dict:
     from ..models.grf import grf_spectral_problem
     from ..models.lensing import zhat_varpro_counts
     from ..ops import grf_spectrum as gs
+    from ..ops import lens_planes as lp
     from ..ops.cg import batched_cg
     from ..ops.herm_white import herm_white_cuda
     from ..ops.lbfgs import batched_lbfgs
@@ -143,6 +144,11 @@ def counters() -> dict:
         ("SpectrumQuadform", gs.SpectrumQuadform, ("evaluations",)),
         ("SpectrumQuadforms", gs.SpectrumQuadforms, ("evaluations",)),
         ("herm_white_cuda", herm_white_cuda, ("launches",)),
+        ("lens_expand_cuda", lp.lens_expand_cuda, ("launches",)),
+        ("lens_combine_cuda", lp.lens_combine_cuda, ("launches",)),
+        ("lens_residual_cuda", lp.lens_residual_cuda, ("launches",)),
+        ("lens_spread_cuda", lp.lens_spread_cuda, ("launches",)),
+        ("lens_contract_cuda", lp.lens_contract_cuda, ("launches",)),
         ("sample_whites", sample_whites_counts,
          ("batched_lanes", "looped_lanes")),
         ("muse_fit", muse_fit, ("host_syncs",)),

@@ -83,13 +83,13 @@ def test_derivative_diagonals_are_hermitian_consistent(n):
     and on a CPU they give the plain {1, ikx, iky, −kx², −ky², −kx·ky}
     products' fields, which drop the same Nyquist entries (1e-6 of the
     largest entry)."""
-    K = tl._derivative_diagonals(n, CPU)
-    torch.testing.assert_close(tl._herm_sym(K), K, rtol=0, atol=0)
-    ky, kx = tl._k_grids(n, CPU)
+    K = tl.derivative_diagonals(n, CPU)
+    torch.testing.assert_close(tl.herm_sym(K), K, rtol=0, atol=0)
+    ky, kx = tl.k_grids(n, CPU)
     plain = [1.0 + 0j, 1j * kx, 1j * ky, -(kx ** 2), -(ky ** 2), -(kx * ky)]
     zf = torch.fft.rfft2(_t(_fields(n, 1)[0]))
     spec = zf * K
-    torch.testing.assert_close(tl._herm_sym(spec), spec, rtol=0,
+    torch.testing.assert_close(tl.herm_sym(spec), spec, rtol=0,
                                atol=1e-6 * float(spec.abs().max()))
     for j, mult in enumerate(plain):
         want = torch.fft.irfft2(zf * mult, s=(n, n))

@@ -87,7 +87,10 @@ def test_counters_list_every_counter():
         "spectrum_quadforms_cuda.launches",
         "spectrum_quadform_and_grad_cuda.launches",
         "SpectrumQuadform.evaluations", "SpectrumQuadforms.evaluations",
-        "herm_white_cuda.launches", "sample_whites.batched_lanes",
+        "herm_white_cuda.launches", "lens_expand_cuda.launches",
+        "lens_combine_cuda.launches", "lens_residual_cuda.launches",
+        "lens_spread_cuda.launches", "lens_contract_cuda.launches",
+        "sample_whites.batched_lanes",
         "sample_whites.looped_lanes", "muse_fit.host_syncs",
         "get_J.host_syncs", "get_H.host_syncs",
         "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
