@@ -73,6 +73,9 @@ from .solver.muse import muse, muse_fit  # noqa: E402
 from .theta import ThetaSpec  # noqa: E402
 from .ppl import PPLMuseProblem, model_problem  # noqa: E402
 from . import distributions, parallel, ppl, transforms  # noqa: E402
+# every module that keeps counters, so that trace.counters() lists them
+# whatever a caller imported first
+from . import models, ops  # noqa: E402,F401
 
 __all__ = [
     "MuseProblem", "SimpleMuseProblem", "MuseResult", "load_result", "muse",

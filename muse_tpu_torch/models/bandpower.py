@@ -15,7 +15,11 @@ ships no field model; this family is the configuration that runs the
 nθ ≫ 1 regime.
 
 It is carried end to end in the isometric PACKED-SPECTRAL coordinates of
-:func:`~muse_tpu_torch.models.grf.grf_spectral_problem`: every density,
+:func:`~muse_tpu_torch.models.grf.grf_spectral_problem`, and built by the
+same builder (``models/grf.py``'s ``_packed_spectral_problem``), which
+holds the white draws and split, the log-likelihood, the MAP solvers, the
+data's forms and the field share: C(θ) per packed coordinate, the per-band
+score and the prior are all that is this module's own. Every density,
 score, MAP solve and the exact implicit-diff H preconditioner is diagonal
 elementwise work, and the hermitian white noise is drawn by indexing
 (``hermitian_white_packed``). A MUSE iteration runs no FFT at any nbands.
@@ -43,10 +47,7 @@ import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
-from ..utils.keys import lane_generator
-from .grf import (GrfConfig, _field_share, _herm_white_draw,
-                  _herm_white_tensors, _herm_whites_hook, _host,
-                  _packed_diag_pcg, _set_field, pack_field_host)
+from .grf import GrfConfig, _packed_spectral_problem
 
 __all__ = ["band_edges", "bandpower_problem", "bandpower_mle"]
 
@@ -114,136 +115,62 @@ def bandpower_problem(n: int = 64, nbands: int = 8, *,
     the solver's field reduction turns the partial (nbands,) vectors into
     the global one, in a fixed order (a rerun is bitwise equal).
     """
-    if solver not in ("cg", "direct", "lbfgs"):
-        raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
-                         f"{solver!r}")
-    cols, rows, reduce = _field_share(mesh, n, solver, "bandpower_problem")
-    if cols != slice(None) and x_obs is None:
-        # the data, drawn whole as without a mesh
-        x_obs = bandpower_problem(n, nbands, sigma_noise=sigma_noise,
-                                  gamma=gamma, k0=k0, theta_true=theta_true,
-                                  data_seed=data_seed, solver="direct",
-                                  device=device).x
     cfg = GrfConfig(n, sigma_noise, gamma, k0, False, device=device)
     dev = cfg.device
     s2 = sigma_noise ** 2
-    nr = n // 2 + 1
-    # the kernels' (rows, 2m) view of this rank's packed coordinates
-    grid = (rows, 2 * nr)
-    sqw_n_host = np.sqrt(_herm_weight64(n)) / n
-    coeffs = _herm_white_tensors(n, dev)
-
     k64 = _k_grid64(n)
     edges = band_edges(n, nbands)
     band_grid = np.searchsorted(edges, k64, side="right")
-    band_host = np.tile(band_grid.reshape(-1), 2)[cols]
-    band_idx = torch.tensor(band_host, dtype=torch.int64, device=dev)
-    # this rank's packed coordinates sorted by band, once: band b is the
-    # slice [starts[b], starts[b+1]) of the permuted vector
-    order = torch.tensor(np.argsort(band_host, kind="stable"), device=dev)
-    starts = np.concatenate([[0], np.cumsum(np.bincount(band_host,
-                                                        minlength=nbands))])
-    # the base spectrum per packed coordinate (the shape at θ = 0)
-    P0 = torch.tensor(np.tile(((k64 + k0) ** (-gamma)).astype(np.float32)
-                              .reshape(-1), 2)[cols], device=dev)
+    # the band and the base spectrum (the shape at θ = 0) per packed
+    # coordinate
+    band_all = np.tile(band_grid.reshape(-1), 2)
+    P0_all = np.tile(((k64 + k0) ** (-gamma)).astype(np.float32)
+                     .reshape(-1), 2)
 
-    def _C2(theta):
-        """C per packed coordinate: P0 · exp(θ_band)."""
-        return P0 * torch.exp(cfg.theta_tensor(theta)[band_idx])
+    def model_on(cols, grid):
+        band_host = band_all[cols]
+        band_idx = torch.tensor(band_host, dtype=torch.int64, device=dev)
+        # this rank's packed coordinates sorted by band, once: band b is the
+        # slice [starts[b], starts[b+1]) of the permuted vector
+        order = torch.tensor(np.argsort(band_host, kind="stable"), device=dev)
+        starts = np.concatenate([[0], np.cumsum(
+            np.bincount(band_host, minlength=nbands))])
+        P0 = torch.tensor(P0_all[cols], device=dev)
 
-    def band_sum(q):
-        """Σ over each band's coordinates of a packed (L,) vector (this
-        rank's slice of one under a field axis) → the (nbands,) sums, in a
-        fixed order (a rerun is bitwise equal)."""
-        qs = q[order]
-        return torch.stack([qs[starts[b]:starts[b + 1]].sum()
-                            for b in range(nbands)])
+        def C2(theta):
+            """C per packed coordinate: P0 · exp(θ_band)."""
+            return P0 * torch.exp(cfg.theta_tensor(theta)[band_idx])
 
-    # CRN white split (problem.py): both hermitian whites are
-    # θ-independent, so the muse loop hoists the RNG out of the iteration
-    # and only the √C(θ) scaling re-runs per step
-    def sample_white(gen):
-        return (_herm_white_draw(gen, n, coeffs)[cols],
-                _herm_white_draw(gen, n, coeffs)[cols])
+        def band_sum(q):
+            """Σ over each band's coordinates of a packed (L,) vector (this
+            rank's slice of one under a field axis) → the (nbands,) sums, in
+            a fixed order (a rerun is bitwise equal)."""
+            qs = q[order]
+            return torch.stack([qs[starts[b]:starts[b + 1]].sum()
+                                for b in range(nbands)])
 
-    def x_of_white(W, theta):
-        ut, et = W
-        return torch.sqrt(_C2(theta)) * ut + sigma_noise * et, ut
+        def grad_theta(xt, ut, theta):
+            """Analytic ∂θ log_like at the exact MAP: the all-positive
+            packed Fourier score (the real-space form loses the residual's
+            bits to float32 cancellation at high SNR), reduced per band:
+            ∂C/∂θ_b = C·1_{band b}, so
+            g_b = ½ Σ_{c ∈ band b} x̃_c² C/(C+σ²)²."""
+            C = C2(theta)
+            return band_sum(0.5 * xt * xt * C / (C + s2) ** 2)
 
-    def sample_x_z(gen, theta):
-        return x_of_white(sample_white(gen), theta)
-
-    def log_like(xt, ut, theta):
-        r = xt - torch.sqrt(_C2(theta)) * ut
-        return -0.5 * (torch.sum(r * r) / s2 + torch.sum(ut * ut))
+        return C2, grad_theta, {"band_sum": band_sum}
 
     def log_prior(theta):
         th = cfg.theta_tensor(theta)
         return -torch.sum(th ** 2) / (2 * prior_std ** 2)
 
-    def grad_theta(xt, ut, theta):
-        """Analytic ∂θ log_like at the exact MAP: the all-positive packed
-        Fourier score (the real-space form loses the residual's bits to
-        float32 cancellation at high SNR), reduced per band:
-        ∂C/∂θ_b = C·1_{band b}, so g_b = ½ Σ_{c ∈ band b} x̃_c² C/(C+σ²)²."""
-        C2 = _C2(theta)
-        return band_sum(0.5 * xt * xt * C2 / (C2 + s2) ** 2)
-
-    def zhat_cg(xs, Z0, th_flat, atol):
-        """Batched PCG with the diagonal operator A = 1 + C/σ²: no FFT."""
-        C2 = _C2(th_flat)[None]
-        return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
-                                atol, cg_maxiter, grid, nz=2 * n * nr,
-                                reduce=reduce)
-
-    def zhat_direct(xs, Z0, th_flat, atol):
-        C2 = _C2(th_flat)[None]
-        Z = torch.sqrt(C2) * xs / (s2 + C2)
-        B = Z.shape[0]
-        return Z, {"converged": torch.ones(B, dtype=torch.bool, device=dev),
-                   "failed": torch.zeros(B, dtype=torch.bool, device=dev)}
-
-    if x_obs is None:
-        if theta_true is None:
-            theta_true = torch.zeros(nbands, device=dev)
-        x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
-    elif np.ndim(_host(x_obs)) == 2:
-        x_obs = torch.tensor(pack_field_host(x_obs, cfg.herm_weight, n),
-                             device=dev)
-    else:
-        x_obs = torch.tensor(np.asarray(_host(x_obs), np.float32),
-                             device=dev)
-
-    prob = SimpleMuseProblem(
-        x_obs[cols], sample_x_z, log_like, log_prior,
-        custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
-                     "lbfgs": None}[solver],
-        grad_theta_log_like=grad_theta, device=dev,
-        sample_white=sample_white, x_of_white=x_of_white)
-    prob.name = "bandpower_problem"
-    prob.grf_config = cfg
-    if dev.type == "cuda":
-        prob.sample_whites_batched = _herm_whites_hook(n, coeffs, cols, None)
-    _set_field(prob, mesh, cols, 2 * n * nr)
+    prob = _packed_spectral_problem(
+        "bandpower_problem", cfg, model_on, log_prior,
+        np.zeros(nbands) if theta_true is None else theta_true,
+        noise="direct", solver=solver, x_obs=x_obs, data_seed=data_seed,
+        cg_maxiter=cg_maxiter, mesh=mesh, weight64=_herm_weight64(n))
     prob.nbands = nbands
     prob.band_edges = edges
-    prob.band_sum = band_sum
-
-    def unpack_field(vt):
-        """Packed (L,) → real (n, n) field, numpy float64 on the host."""
-        re, im = np.split(np.asarray(_host(vt), np.float64), 2)
-        zf = (re + 1j * im).reshape(n, nr) / sqw_n_host
-        return np.fft.irfft2(zf, s=(n, n))
-
-    prob.x_real = unpack_field(x_obs)
-    prob.unpack_field = unpack_field
-
-    def h_precond(w, x, th_flat):
-        """Exact A⁻¹ for implicit-diff get_H: diagonal in packed
-        coordinates (the Pl hook, src/muse.jl:312)."""
-        return w / (1.0 + _C2(th_flat) / s2)
-
-    prob.suggested_h_precond = h_precond
     return prob
 
 
@@ -260,7 +187,9 @@ def bandpower_mle(x_obs, n: int, nbands: int, *, sigma_noise: float = 1.0,
     nbands) = I⁻¹)``; raises RuntimeError when it has not converged (a
     band consistent with zero amplitude runs to the θ → −∞ boundary).
     """
-    xf = np.fft.rfft2(np.asarray(_host(x_obs), np.float64))
+    if isinstance(x_obs, torch.Tensor):
+        x_obs = x_obs.detach().cpu().numpy()
+    xf = np.fft.rfft2(np.asarray(x_obs, np.float64))
     p = (np.abs(xf) ** 2) / (n ** 2)
     w = _herm_weight64(n)
     kk = _k_grid64(n)

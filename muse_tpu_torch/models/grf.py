@@ -41,8 +41,7 @@ import numpy as np
 import torch
 
 from ..adapters.simple import SimpleMuseProblem
-from ..ops.herm_white import herm_white_batched
-from ..ops.herm_white import herm_white_draw as _herm_white_draw
+from ..ops.herm_white import herm_white_batched, herm_white_draw
 from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.keys import lane_generator
@@ -114,6 +113,14 @@ def _herm_whites_hook(n: int, coeffs, cols, x_parts):
     return sample_whites_batched
 
 
+def _herm_whites(gen: torch.Generator, n: int, coeffs, cols) -> tuple:
+    """A packed model's ``sample_white(gen)``: two hermitian white draws
+    from ``gen`` in turn (:func:`hermitian_white_packed`), each cut to
+    ``cols``; the hook above draws the same for every lane at once."""
+    return (herm_white_draw(gen, n, coeffs)[cols],
+            herm_white_draw(gen, n, coeffs)[cols])
+
+
 def hermitian_white_packed(gen: torch.Generator, n: int) -> torch.Tensor:
     """Draw pack(rfft2(white n×n field))-distributed noise without an FFT.
 
@@ -121,7 +128,7 @@ def hermitian_white_packed(gen: torch.Generator, n: int) -> torch.Tensor:
     masks of :func:`_herm_white_coeffs`; the (L,) result, L = 2·n·(n//2+1),
     lies on ``gen``'s device (muse_tpu grf.py:87-107, with a generator in
     place of the key)."""
-    return _herm_white_draw(gen, n, _herm_white_tensors(n, gen.device))
+    return herm_white_draw(gen, n, _herm_white_tensors(n, gen.device))
 
 
 def pack_field_host(x, herm_weight, n: int) -> np.ndarray:
@@ -227,6 +234,158 @@ def _set_field(prob, mesh, cols, size: int):
         prob.field_mesh = mesh
         prob.field_slice = cols
         prob.field_size = size
+
+
+def _packed_spectral_problem(name: str, cfg: GrfConfig, model_on,
+                             log_prior, theta_true, *, noise: str,
+                             solver: str, x_obs, data_seed: int,
+                             cg_maxiter: int, mesh, read=_host,
+                             weight64=None) -> SimpleMuseProblem:
+    """The packed-spectral diagonal GRF, the family of
+    :func:`grf_spectral_problem` and ``bandpower_problem``: x and the white
+    latent ũ in the isometric packing ṽ = pack(√w/n · rfft2(v)) of length
+    L = 2·n·(n//2+1), x̃ = √C(θ)·ũ + σ·ẽ per packed coordinate, so the MAP
+    operator A = 1 + C/σ² and the implicit-H preconditioner 1/A are
+    diagonal. The white draws and split, the log-likelihood, the MAP
+    solvers, the data's three forms, the field share and the attributes
+    are here; the caller gives what is its own:
+
+      * ``model_on(cols, grid)`` → ``(C2, grad_theta, attrs)`` on the slice
+        ``cols`` of a packed (L,) vector that this rank holds, whose
+        kernels' view is ``grid`` = (rows, 2m): ``C2(θ)`` the spectrum per
+        packed coordinate of the slice, ``grad_theta`` the analytic
+        θ-score and ``attrs`` the problem's own attributes;
+      * ``log_prior``, and ``theta_true``, which draws the data when
+        ``x_obs`` is None;
+      * ``read``, its device→host read (one that counts, or ``_host``),
+        and ``weight64``, the float64 hermitian weights of
+        ``unpack_field`` (None: ``cfg.herm_weight``, read).
+
+    ``noise``, ``solver``, ``x_obs``, ``data_seed``, ``cg_maxiter`` and
+    ``mesh`` are :func:`grf_spectral_problem`'s; ``name`` names the problem
+    and its errors."""
+    if noise not in ("marginal", "direct", "fft"):
+        raise ValueError(
+            f"noise must be 'marginal'|'direct'|'fft', got {noise!r}")
+    if solver not in ("cg", "direct", "lbfgs"):
+        raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
+                         f"{solver!r}")
+    n = cfg.n
+    cols, rows, reduce = _field_share(mesh, n, solver, name)
+    if cols != slice(None) and x_obs is None:
+        # the data, drawn whole as without a mesh
+        x_obs = _packed_spectral_problem(
+            name, cfg, model_on, log_prior, theta_true, noise=noise,
+            solver="direct", x_obs=None, data_seed=data_seed,
+            cg_maxiter=cg_maxiter, mesh=None, read=read,
+            weight64=weight64).x
+    s2 = cfg.sigma_noise ** 2
+    dev = cfg.device
+    nr = n // 2 + 1
+    # the kernels' (rows, 2m) view of this rank's packed coordinates
+    grid = (rows, 2 * nr)
+    sqw_n = torch.sqrt(cfg.herm_weight) / n
+    if weight64 is None:
+        weight64 = np.asarray(read(cfg.herm_weight), np.float64)
+    sqw_n_host = np.sqrt(weight64) / n
+    coeffs = _herm_white_tensors(n, dev)
+    _C2, grad_theta, attrs = model_on(cols, grid)
+
+    def pack_field(v):
+        """Real (n, n) field → packed (L,) on the device."""
+        zs = torch.fft.rfft2(v, dim=(-2, -1)) * sqw_n
+        return torch.cat([zs.real.reshape(-1), zs.imag.reshape(-1)])
+
+    def unpack_field(vt):
+        """Packed (L,) → real (n, n) field, numpy float64 on the host."""
+        re, im = np.split(np.asarray(read(vt), np.float64), 2)
+        zf = (re + 1j * im).reshape(n, nr) / sqw_n_host
+        return np.fft.irfft2(zf, s=(n, n))
+
+    # ---- packed white noise and the sample completion --------------- #
+    if noise == "fft":
+        def sample_white(gen):
+            return tuple(pack_field(torch.randn((n, n), generator=gen,
+                                                device=dev))[cols]
+                         for _ in range(2))
+    else:
+        def sample_white(gen):
+            return _herm_whites(gen, n, coeffs, cols)
+
+    if noise == "marginal":
+        # x̃ ~ N(0, C+σ²) and ũ|x̃ ~ N(√C x̃/(C+σ²), σ²/(C+σ²)): the same
+        # joint law as the other modes, with x a function of w₁ alone
+        def x_of_white(W, theta):
+            w1, w2 = W
+            C2 = _C2(theta)
+            D = C2 + s2
+            xt = torch.sqrt(D) * w1
+            if w2 is None:
+                return xt, None
+            return xt, (torch.sqrt(C2) / D) * xt + torch.sqrt(s2 / D) * w2
+    else:
+        def x_of_white(W, theta):
+            ut, et = W
+            return torch.sqrt(_C2(theta)) * ut + cfg.sigma_noise * et, ut
+
+    def sample_x_z(gen, theta):
+        # the CRN stream of every noise mode is the white split composed
+        return x_of_white(sample_white(gen), theta)
+
+    def log_like(xt, ut, theta):
+        r = xt - torch.sqrt(_C2(theta)) * ut
+        return -0.5 * (torch.sum(r * r) / s2 + torch.sum(ut * ut))
+
+    def zhat_cg(xs, Z0, th_flat, atol):
+        """Batched PCG with the diagonal operator A = 1 + C/σ²: no FFT."""
+        C2 = _C2(th_flat)[None]
+        return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
+                                atol, cg_maxiter, grid, nz=2 * n * nr,
+                                reduce=reduce)
+
+    def zhat_direct(xs, Z0, th_flat, atol):
+        C2 = _C2(th_flat)[None]
+        Z = torch.sqrt(C2) * xs / (s2 + C2)
+        B = Z.shape[0]
+        return Z, {"converged": torch.ones(B, dtype=torch.bool, device=dev),
+                   "failed": torch.zeros(B, dtype=torch.bool, device=dev)}
+
+    if x_obs is None:
+        x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
+    elif np.ndim(read(x_obs)) == 2:
+        x_obs = torch.tensor(pack_field_host(read(x_obs),
+                                             read(cfg.herm_weight), n),
+                             device=dev)
+    else:
+        x_obs = torch.tensor(np.asarray(read(x_obs), np.float32),
+                             device=dev)
+
+    prob = SimpleMuseProblem(
+        x_obs[cols], sample_x_z, log_like, log_prior,
+        custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
+                     "lbfgs": None}[solver],
+        grad_theta_log_like=grad_theta, device=dev,
+        sample_white=sample_white, x_of_white=x_of_white,
+        x_white_parts=(0,) if noise == "marginal" else None)
+    prob.name = name
+    prob.grf_config = cfg
+    if noise != "fft" and dev.type == "cuda":
+        prob.sample_whites_batched = _herm_whites_hook(n, coeffs, cols,
+                                                       prob.x_white_parts)
+    _set_field(prob, mesh, cols, 2 * n * nr)
+    prob.x_real = unpack_field(x_obs)     # for closed-form oracles
+    prob.pack_field = pack_field
+    prob.unpack_field = unpack_field
+
+    def h_precond(w, x, th_flat):
+        """Exact A⁻¹ for implicit-diff get_H: diagonal in packed
+        coordinates (the Pl hook, src/muse.jl:312)."""
+        return w / (1.0 + _C2(th_flat) / s2)
+
+    prob.suggested_h_precond = h_precond
+    for k, v in attrs.items():
+        setattr(prob, k, v)
+    return prob
 
 
 def _dlogC(cfg) -> torch.Tensor:
@@ -688,151 +847,45 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
             grf_spectral_problem.host_syncs += 1
         return _host(a)
 
-    if noise not in ("marginal", "direct", "fft"):
-        raise ValueError(
-            f"noise must be 'marginal'|'direct'|'fft', got {noise!r}")
-    if solver not in ("cg", "direct", "lbfgs"):
-        raise ValueError(f"solver must be 'cg'|'direct'|'lbfgs', got "
-                         f"{solver!r}")
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, infer_tilt,
                               device=device)
-    n = cfg.n
-    cols, rows, reduce = _field_share(mesh, n, solver,
-                                      "grf_spectral_problem")
-    if cols != slice(None) and x_obs is None:
-        # the data, drawn whole as without a mesh
-        x_obs = grf_spectral_problem(cfg, theta_true=theta_true,
-                                     data_seed=data_seed, solver="direct",
-                                     noise=noise).x
     s2 = cfg.sigma_noise ** 2
-    dev = cfg.device
-    nr = n // 2 + 1
-    # the kernels' (rows, 2m) view of this rank's packed coordinates
-    grid = (rows, 2 * nr)
-    sqw_n = torch.sqrt(cfg.herm_weight) / n
-    sqw_n_host = np.sqrt(np.asarray(read(cfg.herm_weight), np.float64)) / n
-    # ∂log C/∂θ per θ component, tiled over (re, im) and cut to this rank
-    dlogC2 = _dlogC(cfg).flatten(1).repeat(1, 2)[:, cols]
-    coeffs = _herm_white_tensors(n, dev)
+    # ∂log C/∂θ per θ component, tiled over (re, im)
+    dlogC = _dlogC(cfg).flatten(1).repeat(1, 2)
 
-    def _C2(theta):
-        """Spectrum per packed coordinate of this rank: C_k tiled over
-        (re, im)."""
-        return cfg.spectrum(theta).reshape(-1).repeat(2)[cols]
+    def model_on(cols, grid):
+        dlogC2 = dlogC[:, cols]
 
-    def pack_field(v):
-        """Real (n, n) field → packed (L,) on the device."""
-        zs = torch.fft.rfft2(v, dim=(-2, -1)) * sqw_n
-        return torch.cat([zs.real.reshape(-1), zs.imag.reshape(-1)])
+        def C2(theta):
+            """Spectrum per packed coordinate of this rank: C_k tiled over
+            (re, im)."""
+            return cfg.spectrum(theta).reshape(-1).repeat(2)[cols]
 
-    def unpack_field(vt):
-        """Packed (L,) → real (n, n) field, numpy float64 on the host."""
-        re, im = np.split(np.asarray(read(vt), np.float64), 2)
-        zf = (re + 1j * im).reshape(n, nr) / sqw_n_host
-        return np.fft.irfft2(zf, s=(n, n))
+        def grad_theta(xt, ut, theta):
+            """Analytic ∂θ log_like at the exact MAP: ½Σ x̃²·∂C/(C+σ²)²,
+            every θ component's sum from one ``spectrum_quadforms`` call."""
+            C = C2(theta)
+            wq = C / (C + s2) ** 2
+            g = 0.5 * spectrum_quadforms(xt.reshape((1,) + grid),
+                                         (dlogC2 * wq).reshape((-1,)
+                                                               + grid))[0]
+            return _theta_shaped(g, theta)
 
-    # ---- packed white noise and the sample completion --------------- #
-    if noise == "fft":
-        def sample_white(gen):
-            return tuple(pack_field(torch.randn((n, n), generator=gen,
-                                                device=dev))[cols]
-                         for _ in range(2))
-    else:
-        def sample_white(gen):
-            return (_herm_white_draw(gen, n, coeffs)[cols],
-                    _herm_white_draw(gen, n, coeffs)[cols])
-
-    if noise == "marginal":
-        # x̃ ~ N(0, C+σ²) and ũ|x̃ ~ N(√C x̃/(C+σ²), σ²/(C+σ²)): the same
-        # joint law as the other modes, with x a function of w₁ alone
-        def x_of_white(W, theta):
-            w1, w2 = W
-            C2 = _C2(theta)
-            D = C2 + s2
-            xt = torch.sqrt(D) * w1
-            if w2 is None:
-                return xt, None
-            return xt, (torch.sqrt(C2) / D) * xt + torch.sqrt(s2 / D) * w2
-    else:
-        def x_of_white(W, theta):
-            ut, et = W
-            return torch.sqrt(_C2(theta)) * ut + cfg.sigma_noise * et, ut
-
-    def sample_x_z(gen, theta):
-        # the CRN stream of every noise mode is the white split composed
-        return x_of_white(sample_white(gen), theta)
-
-    def log_like(xt, ut, theta):
-        r = xt - torch.sqrt(_C2(theta)) * ut
-        return -0.5 * (torch.sum(r * r) / s2 + torch.sum(ut * ut))
+        return C2, grad_theta, {}
 
     def log_prior(theta):
         th = torch.atleast_1d(cfg.theta_tensor(theta))
         return -torch.sum(th ** 2) / (2 * prior_std ** 2)
 
-    def grad_theta(xt, ut, theta):
-        """Analytic ∂θ log_like at the exact MAP: ½Σ x̃²·∂C/(C+σ²)², every
-        θ component's sum from one ``spectrum_quadforms`` call."""
-        C2 = _C2(theta)
-        wq = C2 / (C2 + s2) ** 2
-        g = 0.5 * spectrum_quadforms(xt.reshape((1,) + grid),
-                                     (dlogC2 * wq).reshape((-1,) + grid))[0]
-        return _theta_shaped(g, theta)
-
-    def zhat_cg(xs, Z0, th_flat, atol):
-        """Batched PCG with the diagonal operator A = 1 + C/σ²."""
-        C2 = _C2(th_flat)[None]
-        return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
-                                atol, cg_maxiter, grid, nz=2 * n * nr,
-                                reduce=reduce)
-
-    def zhat_direct(xs, Z0, th_flat, atol):
-        C2 = _C2(th_flat)[None]
-        Z = torch.sqrt(C2) * xs / (s2 + C2)
-        B = Z.shape[0]
-        return Z, {"converged": torch.ones(B, dtype=torch.bool, device=dev),
-                   "failed": torch.zeros(B, dtype=torch.bool, device=dev)}
-
-    if x_obs is None:
-        if theta_true is None:
-            theta_true = (torch.zeros(2, device=dev) if cfg.infer_tilt
-                          else 0.0)
-        x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
-    elif np.ndim(read(x_obs)) == 2:
-        x_obs = torch.tensor(pack_field_host(read(x_obs),
-                                             read(cfg.herm_weight), n),
-                             device=dev)
-    else:
-        x_obs = torch.tensor(np.asarray(read(x_obs), np.float32),
-                             device=dev)
-
-    prob = SimpleMuseProblem(
-        x_obs[cols], sample_x_z, log_like, log_prior,
-        custom_zhat={"cg": zhat_cg, "direct": zhat_direct,
-                     "lbfgs": None}[solver],
-        grad_theta_log_like=grad_theta, device=dev,
-        sample_white=sample_white, x_of_white=x_of_white,
-        x_white_parts=(0,) if noise == "marginal" else None)
-    prob.name = "grf_spectral_problem"
-    prob.grf_config = cfg
-    if noise != "fft" and dev.type == "cuda":
-        prob.sample_whites_batched = _herm_whites_hook(n, coeffs, cols,
-                                                       prob.x_white_parts)
-    _set_field(prob, mesh, cols, 2 * n * nr)
-    prob.x_real = unpack_field(x_obs)     # for closed-form oracles
-    prob.pack_field = pack_field
-    prob.unpack_field = unpack_field
-
-    def h_precond(w, x, th_flat):
-        """Exact A⁻¹ for implicit-diff get_H: diagonal in packed
-        coordinates."""
-        return w / (1.0 + _C2(th_flat) / s2)
-
-    prob.suggested_h_precond = h_precond
-    return prob
+    if theta_true is None:
+        theta_true = np.zeros(2) if cfg.infer_tilt else 0.0
+    return _packed_spectral_problem(
+        "grf_spectral_problem", cfg, model_on, log_prior, theta_true,
+        noise=noise, solver=solver, x_obs=x_obs, data_seed=data_seed,
+        cg_maxiter=cg_maxiter, mesh=mesh, read=read)
 
 
-grf_spectral_problem.host_syncs = 0
+trace.declare(grf_spectral_problem, "host_syncs")
 
 
 def grf_marginal_mle(x_obs, cfg: GrfConfig, theta0=0.0,

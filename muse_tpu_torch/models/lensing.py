@@ -59,8 +59,9 @@ __all__ = ["lensing_problem", "bilinear_warp", "gradient_field",
 #: the process: the calls that entered the Newton-CG polish, the lanes
 #: handed to it, and the lanes returned with ``converged`` false (frozen
 #: at their budget, or failed)
-zhat_varpro_counts = SimpleNamespace(polish_entries=0, polished_lanes=0,
-                                     frozen_lanes=0)
+zhat_varpro_counts = trace.declare(SimpleNamespace(), "polish_entries",
+                                   "polished_lanes", "frozen_lanes",
+                                   site="zhat_varpro")
 
 
 def bilinear_warp(field: torch.Tensor, dx: torch.Tensor,
@@ -566,7 +567,6 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
         if not left:
             counts.frozen_lanes += unconv
             return (field.keep(Z) if on_cols else Z), aux
-        zhat_varpro.polish_entries += 1
         counts.polish_entries += 1
         counts.polished_lanes += left
         with trace.span("muse.varpro.polish"):
@@ -579,8 +579,6 @@ def lensing_problem(n: int = 64, *, sigma_noise: float = 0.2,
                    "g_norm": pol.g_norm, "neg_logp": pol.f}
             counts.frozen_lanes += int((~pol.converged).sum())
         return pol.z, aux
-
-    zhat_varpro.polish_entries = 0
 
     if solver == "auto":
         solver = "varpro"

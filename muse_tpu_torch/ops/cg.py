@@ -31,6 +31,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import trace
+
 __all__ = ["BatchedCgResult", "batched_cg"]
 
 # most loop steps between two of the host's reads of all(done); the reads
@@ -155,6 +157,4 @@ def batched_cg(
                            iterations=iters)
 
 
-batched_cg.steps = 0
-batched_cg.curvature_steps = 0
-batched_cg.host_syncs = 0
+trace.declare(batched_cg, "steps", "curvature_steps", "host_syncs")

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 __all__ = ["spectrum_quadform", "spectrum_quadform_plain",
            "spectrum_quadform_cuda", "SpectrumQuadform",
            "spectrum_quadforms", "spectrum_quadforms_plain",
@@ -133,7 +135,7 @@ def spectrum_quadforms_cuda(z_ri: torch.Tensor,
     return out
 
 
-spectrum_quadforms_cuda.launches = 0
+trace.declare(spectrum_quadforms_cuda, "launches")
 
 
 def spectrum_quadform_cuda(z_ri: torch.Tensor,
@@ -149,7 +151,7 @@ def spectrum_quadform_cuda(z_ri: torch.Tensor,
     return out.reshape(B)
 
 
-spectrum_quadform_cuda.launches = 0
+trace.declare(spectrum_quadform_cuda, "launches")
 
 
 def _quadform_value(z_ri, invCw2):
@@ -169,8 +171,6 @@ class SpectrumQuadform(torch.autograd.Function):
     tensor in the forward. ``SpectrumQuadform.evaluations`` counts forward
     evaluations on any device; on a card it equals the kernel's launches.
     """
-
-    evaluations = 0
 
     @staticmethod
     def forward(z_ri, invCw2):
@@ -210,6 +210,9 @@ class SpectrumQuadform(torch.autograd.Function):
         return out, 0
 
 
+trace.declare(SpectrumQuadform, "evaluations")
+
+
 def spectrum_quadform(z_ri: torch.Tensor, invCw2: torch.Tensor) -> torch.Tensor:
     """Σ_k w_k|ẑ_k|²/C_k per lane: (B, n, 2m), (n, 2m) → (B,)."""
     return SpectrumQuadform.apply(z_ri, invCw2)
@@ -224,8 +227,6 @@ class SpectrumQuadforms(torch.autograd.Function):
     a backward through it raises. ``SpectrumQuadforms.evaluations`` counts
     forward evaluations on any device; on a card it equals the kernel's
     launches."""
-
-    evaluations = 0
 
     @staticmethod
     def forward(z_ri, W):
@@ -264,6 +265,9 @@ class SpectrumQuadforms(torch.autograd.Function):
                             for v in range(V)]), 0
 
 
+trace.declare(SpectrumQuadforms, "evaluations")
+
+
 def spectrum_quadforms(z_ri: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Σ_i z_ri[b,i]²·W[k,i] per lane and weight: (B, n, 2m), (K, n, 2m) →
     (B, K), 1 ≤ K ≤ 4, in one pass over z (the kernel for CUDA tensors, the
@@ -300,7 +304,7 @@ def spectrum_quadform_and_grad_cuda(z_ri: torch.Tensor, invCw2: torch.Tensor):
     return out, g
 
 
-spectrum_quadform_and_grad_cuda.launches = 0
+trace.declare(spectrum_quadform_and_grad_cuda, "launches")
 
 
 def spectrum_quadform_and_grad(z_ri: torch.Tensor, invCw2: torch.Tensor):

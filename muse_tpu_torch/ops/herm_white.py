@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from ..utils.keys import lane_generator
 
 __all__ = ["herm_white_draw", "herm_white_batched", "herm_white_plain",
@@ -146,7 +147,7 @@ def herm_white_cuda(seeds, n: int, coeffs, parts=(0, 1),
     return outs
 
 
-herm_white_cuda.launches = 0
+trace.declare(herm_white_cuda, "launches")
 
 
 def herm_white_batched(seeds, n: int, coeffs, parts=(0, 1),

@@ -65,6 +65,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .cg import _CHECK_EVERY
 
 __all__ = ["LbfgsResult", "batched_lbfgs"]
@@ -364,6 +365,4 @@ def batched_lbfgs(
                        iterations=iters, g_norm=sup_finite(g)[0])
 
 
-batched_lbfgs.iterations = 0
-batched_lbfgs.ls_evaluations = 0
-batched_lbfgs.host_syncs = 0
+trace.declare(batched_lbfgs, "iterations", "ls_evaluations", "host_syncs")

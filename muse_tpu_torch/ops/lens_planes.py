@@ -43,6 +43,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = ["k_grids", "herm_sym", "derivative_diagonals", "lens_expand",
            "lens_combine", "lens_residual", "lens_spread", "lens_contract",
            "lens_expand_plain", "lens_combine_plain", "lens_residual_plain",
@@ -312,7 +314,7 @@ def lens_contract_cuda(F6: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 for _fn in (lens_expand_cuda, lens_combine_cuda, lens_residual_cuda,
             lens_spread_cuda, lens_contract_cuda):
-    _fn.launches = 0
+    trace.declare(_fn, "launches")
 
 
 # ---- the dispatch ---------------------------------------------------- #

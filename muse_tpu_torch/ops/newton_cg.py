@@ -60,6 +60,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .cg import _CHECK_EVERY
 
 __all__ = ["NewtonCgResult", "batched_newton_cg"]
@@ -335,7 +336,5 @@ def batched_newton_cg(
                           g_norm=sup_finite(g)[0])
 
 
-batched_newton_cg.iterations = 0
-batched_newton_cg.cg_steps = 0
-batched_newton_cg.hvps = 0
-batched_newton_cg.host_syncs = 0
+trace.declare(batched_newton_cg, "iterations", "cg_steps", "hvps",
+              "host_syncs")

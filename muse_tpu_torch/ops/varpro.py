@@ -57,6 +57,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .lbfgs import _dot, _two_loop_chrono, _two_loop_gram
 
 __all__ = ["VarproResult", "batched_varpro"]
@@ -351,7 +352,5 @@ def batched_varpro(
                         g_norm=torch.maximum(sup(g), rsup))
 
 
-batched_varpro.iterations = 0
-batched_varpro.ls_trials = 0
-batched_varpro.inner_steps = 0
-batched_varpro.host_syncs = 0
+trace.declare(batched_varpro, "iterations", "ls_trials", "inner_steps",
+              "host_syncs")

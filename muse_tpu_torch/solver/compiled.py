@@ -85,7 +85,8 @@ __all__ = ["CompiledProblem", "sample_whites_counts"]
 #: the lanes :meth:`CompiledProblem.sample_whites` drew through a problem's
 #: ``sample_whites_batched`` and through the per-lane loop. They are kept
 #: here, not on the method, which a caller may wrap.
-sample_whites_counts = SimpleNamespace(batched_lanes=0, looped_lanes=0)
+sample_whites_counts = trace.declare(SimpleNamespace(), "batched_lanes",
+                                     "looped_lanes", site="sample_whites")
 
 
 def _lane(tree, i):

@@ -17,6 +17,7 @@ import torch
 
 from ..distributions import MvNormal, Normal
 from ..result import MuseResult
+from ..utils import trace
 from .muse import _host
 
 __all__ = ["finalize_result"]
@@ -56,4 +57,4 @@ def finalize_result(result: MuseResult, comp) -> MuseResult:
     return result
 
 
-finalize_result.host_syncs = 0
+trace.declare(finalize_result, "host_syncs")

@@ -240,7 +240,7 @@ def get_J(
     return result
 
 
-get_J.host_syncs = 0
+trace.declare(get_J, "host_syncs")
 
 
 @trace.spanned("muse.get_H")
@@ -460,7 +460,7 @@ def get_H(
     return result
 
 
-get_H.host_syncs = 0
+trace.declare(get_H, "host_syncs")
 
 
 def _implicit_H(result, comp, seeds, th_dev, fit_atol, cg_maxiter, cg_tol,

@@ -458,7 +458,7 @@ def muse_fit(
     return result
 
 
-muse_fit.host_syncs = 0
+trace.declare(muse_fit, "host_syncs")
 
 
 def _chunk_step(comp, use_white, th, th_t, W_chunks, seeds_all, Z_chunks,

@@ -11,9 +11,12 @@ a span ends when its work is queued, and the wait for that work shows in
 the span of the next blocking read. Off, ``span`` costs one flag test and
 returns a shared ``nullcontext``.
 
-The counters stay function attributes at the site that counts
-(``batched_cg.host_syncs``, ``spectrum_quadforms_cuda.launches``, ...);
-:func:`counters` lists them by dotted name. A ``host_syncs`` counter counts
+The counters stay attributes of the site that counts
+(``batched_cg.host_syncs``, ``spectrum_quadforms_cuda.launches``, ...), and
+the site declares them where it keeps them, with :func:`declare`;
+:func:`counters` lists every declared one by dotted name. This module knows
+no site: the package imports every module that keeps counters, so they are
+all declared once ``muse_tpu_torch`` is. A ``host_syncs`` counter counts
 the blocking device→host reads of its function (``.cpu()``, ``.item()``,
 ``bool``/``int``/``float`` of a tensor), on any device, so a CPU run counts
 what a card run counts.
@@ -28,16 +31,19 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import sys
 import time
+import types
 
 import torch
 
 __all__ = ["enable", "enabled", "span", "spanned", "summary", "reset",
-           "counters"]
+           "declare", "counters"]
 
 _on = False
 _OFF = contextlib.nullcontext()
 _table = {}                 # name → [calls, nanoseconds]
+_sites = {}                 # site → (its owner's reader, counter names)
 
 
 def enable(on: bool = True) -> None:
@@ -109,53 +115,38 @@ def summary() -> dict:
             "counters": counters()}
 
 
-def counters() -> dict:
-    """Every counter the port keeps, by ``<function>.<counter>``."""
-    from ..models.grf import grf_spectral_problem
-    from ..models.lensing import zhat_varpro_counts
-    from ..ops import grf_spectrum as gs
-    from ..ops import lens_planes as lp
-    from ..ops.cg import batched_cg
-    from ..ops.herm_white import herm_white_cuda
-    from ..ops.lbfgs import batched_lbfgs
-    from ..ops.newton_cg import batched_newton_cg
-    from ..ops.varpro import batched_varpro
-    from ..solver.compiled import sample_whites_counts
-    from ..solver.covariance import finalize_result
-    from ..solver.jacobians import get_H, get_J
-    from ..solver.muse import muse_fit
+def declare(owner, *names: str, site: str = None):
+    """Declare the counters ``names`` of ``owner``: each an attribute of it,
+    set to 0 here, and listed by :func:`counters` as ``<site>.<name>``.
+    Returns ``owner``.
 
-    sites = (
-        ("batched_cg", batched_cg,
-         ("steps", "curvature_steps", "host_syncs")),
-        ("batched_lbfgs", batched_lbfgs,
-         ("iterations", "ls_evaluations", "host_syncs")),
-        ("batched_varpro", batched_varpro,
-         ("iterations", "ls_trials", "inner_steps", "host_syncs")),
-        ("batched_newton_cg", batched_newton_cg,
-         ("iterations", "cg_steps", "hvps", "host_syncs")),
-        ("zhat_varpro", zhat_varpro_counts,
-         ("polish_entries", "polished_lanes", "frozen_lanes")),
-        ("spectrum_quadform_cuda", gs.spectrum_quadform_cuda, ("launches",)),
-        ("spectrum_quadforms_cuda", gs.spectrum_quadforms_cuda,
-         ("launches",)),
-        ("spectrum_quadform_and_grad_cuda",
-         gs.spectrum_quadform_and_grad_cuda, ("launches",)),
-        ("SpectrumQuadform", gs.SpectrumQuadform, ("evaluations",)),
-        ("SpectrumQuadforms", gs.SpectrumQuadforms, ("evaluations",)),
-        ("herm_white_cuda", herm_white_cuda, ("launches",)),
-        ("lens_expand_cuda", lp.lens_expand_cuda, ("launches",)),
-        ("lens_combine_cuda", lp.lens_combine_cuda, ("launches",)),
-        ("lens_residual_cuda", lp.lens_residual_cuda, ("launches",)),
-        ("lens_spread_cuda", lp.lens_spread_cuda, ("launches",)),
-        ("lens_contract_cuda", lp.lens_contract_cuda, ("launches",)),
-        ("sample_whites", sample_whites_counts,
-         ("batched_lanes", "looped_lanes")),
-        ("muse_fit", muse_fit, ("host_syncs",)),
-        ("get_J", get_J, ("host_syncs",)),
-        ("get_H", get_H, ("host_syncs",)),
-        ("finalize_result", finalize_result, ("host_syncs",)),
-        ("grf_spectral_problem", grf_spectral_problem, ("host_syncs",)),
-    )
-    return {f"{site}.{name}": getattr(owner, name)
-            for site, owner, names in sites for name in names}
+    A function or a class is its module's global of its name, and is read
+    there at each :func:`counters` call, so a wrapper that takes that
+    global's place and carries the counts meanwhile (the benchmark's launch
+    recorder) is what is read; its site is its name. Any other owner (a
+    namespace of counts) is read as it is, under the ``site`` it names."""
+    for name in names:
+        setattr(owner, name, 0)
+    if isinstance(owner, (types.FunctionType, type)):
+        module, site = owner.__module__, owner.__name__
+
+        def reader():
+            return getattr(sys.modules[module], site)
+    elif site is None:
+        raise TypeError(f"declare: a {type(owner).__name__} owner names its "
+                        "site")
+    else:
+        def reader():
+            return owner
+    _sites[site] = (reader, names)
+    return owner
+
+
+def counters() -> dict:
+    """Every declared counter, by ``<site>.<counter>``."""
+    out = {}
+    for site, (reader, names) in _sites.items():
+        owner = reader()
+        for name in names:
+            out[f"{site}.{name}"] = getattr(owner, name)
+    return out

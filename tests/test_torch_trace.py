@@ -2,7 +2,13 @@
 off they record nothing; on, a CPU pipeline's span table and every
 ``host_syncs`` counter are what the pipeline's structure says."""
 
+import ast
+import json
+import os
+import subprocess
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +20,7 @@ from muse_tpu_torch.ops import cg as cg_mod
 from muse_tpu_torch.ops.cg import batched_cg
 from muse_tpu_torch.utils import trace
 
+ROOT = Path(__file__).resolve().parents[1]
 N, NSIMS, MAX_BATCH, MAXSTEPS, NSIMS_J, NSIMS_H = 32, 8, 4, 4, 12, 8
 
 
@@ -72,28 +79,65 @@ def test_spans_do_not_change_the_fit(spans_on):
     assert len(on.history) == len(off.history)
 
 
-def test_counters_list_every_counter():
-    assert set(trace.counters()) == {
-        "batched_cg.steps", "batched_cg.curvature_steps",
-        "batched_cg.host_syncs",
-        "batched_lbfgs.iterations", "batched_lbfgs.ls_evaluations",
-        "batched_lbfgs.host_syncs", "batched_varpro.iterations",
-        "batched_varpro.ls_trials", "batched_varpro.inner_steps",
-        "batched_varpro.host_syncs", "batched_newton_cg.iterations",
-        "batched_newton_cg.cg_steps", "batched_newton_cg.hvps",
-        "batched_newton_cg.host_syncs", "zhat_varpro.polish_entries",
-        "zhat_varpro.polished_lanes", "zhat_varpro.frozen_lanes",
-        "spectrum_quadform_cuda.launches",
-        "spectrum_quadforms_cuda.launches",
-        "spectrum_quadform_and_grad_cuda.launches",
-        "SpectrumQuadform.evaluations", "SpectrumQuadforms.evaluations",
-        "herm_white_cuda.launches", "lens_expand_cuda.launches",
-        "lens_combine_cuda.launches", "lens_residual_cuda.launches",
-        "lens_spread_cuda.launches", "lens_contract_cuda.launches",
-        "sample_whites.batched_lanes",
-        "sample_whites.looped_lanes", "muse_fit.host_syncs",
-        "get_J.host_syncs", "get_H.host_syncs",
-        "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
+COUNTERS = {
+    "batched_cg.steps", "batched_cg.curvature_steps",
+    "batched_cg.host_syncs",
+    "batched_lbfgs.iterations", "batched_lbfgs.ls_evaluations",
+    "batched_lbfgs.host_syncs", "batched_varpro.iterations",
+    "batched_varpro.ls_trials", "batched_varpro.inner_steps",
+    "batched_varpro.host_syncs", "batched_newton_cg.iterations",
+    "batched_newton_cg.cg_steps", "batched_newton_cg.hvps",
+    "batched_newton_cg.host_syncs", "zhat_varpro.polish_entries",
+    "zhat_varpro.polished_lanes", "zhat_varpro.frozen_lanes",
+    "spectrum_quadform_cuda.launches",
+    "spectrum_quadforms_cuda.launches",
+    "spectrum_quadform_and_grad_cuda.launches",
+    "SpectrumQuadform.evaluations", "SpectrumQuadforms.evaluations",
+    "herm_white_cuda.launches", "lens_expand_cuda.launches",
+    "lens_combine_cuda.launches", "lens_residual_cuda.launches",
+    "lens_spread_cuda.launches", "lens_contract_cuda.launches",
+    "sample_whites.batched_lanes",
+    "sample_whites.looped_lanes", "muse_fit.host_syncs",
+    "get_J.host_syncs", "get_H.host_syncs",
+    "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
+
+
+_FRESH = ("import json; from muse_tpu_torch.utils import trace; "
+          "print(json.dumps(sorted(trace.counters())))")
+
+
+@pytest.mark.parametrize("where", ["this process", "a fresh interpreter"])
+def test_counters_list_every_counter(where):
+    """Every site declares its counters, and importing the trace module
+    alone (which imports the package first) declares them all."""
+    if where == "this process":
+        keys = set(trace.counters())
+    else:
+        out = subprocess.run([sys.executable, "-c", _FRESH], cwd=ROOT,
+                             capture_output=True, text=True, check=True,
+                             env={**os.environ, "PYTHONPATH": str(ROOT)})
+        keys = set(json.loads(out.stdout.splitlines()[-1]))
+    assert keys == COUNTERS
+
+
+def test_trace_imports_no_layer_above_utils():
+    """The bottom layer knows no site: ``utils/trace.py`` imports nothing
+    of the package outside ``utils/``, at module level or in a function."""
+    src = ROOT / "muse_tpu_torch" / "utils" / "trace.py"
+    seen = []
+    for node in ast.walk(ast.parse(src.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            if node.level:     # relative to muse_tpu_torch.utils
+                base = ["muse_tpu_torch", "utils"][:3 - node.level]
+                mod = ".".join(base + ([node.module] if node.module else []))
+                seen += [mod] if node.module else [
+                    f"{mod}.{a.name}" for a in node.names]
+            else:
+                seen.append(node.module)
+        elif isinstance(node, ast.Import):
+            seen += [a.name for a in node.names]
+    ours = [m for m in seen if m.split(".")[0] == "muse_tpu_torch"]
+    assert all(m.startswith("muse_tpu_torch.utils.") for m in ours), ours
 
 
 @pytest.mark.parametrize("maxiter,checks", [(1, 1), (3, 3), (20, 6),
