@@ -347,6 +347,18 @@ test measures |Δθ|·σ_F, so with σ_F ≈ 0.008 it needs 1e-5 to stop within
      holds the adjoint identity and the lane-in-a-batch MAP on the same
      passes, since ``lin_ops`` and ``zhat_varpro`` run through them.
 
+ 20. the packed GRF's diagonal PCG passes (``ops/diag_pcg.py``,
+     ``csrc/diag_pcg.cu``): the start, the update and the direction at
+     (128, L) and (65, L), L = 2·1024·513, each against its plain version
+     evaluated in float64 on the card (vectors ≤ 1e-6 of the largest
+     entry, the per-lane sums ≤ 1e-5 relative), a rerun bitwise equal, and
+     each pass's CUDA-event time beside its bytes bound and the plain
+     version's float32 time; then the benchmark's ``sims512`` and
+     ``sims64`` pipelines, gated on the start launching once a diagonal
+     solve and the update and the direction once a PCG step (Δ
+     ``batched_cg.curvature_steps``, which equals the fused kernel's
+     launches).
+
 A recorder in place of each kernel wrapper keeps every input shape
 launched (``record_kernel_shapes``); after phase 18 the run fails if a
 kernel ran at a shape that phases 3 and 6 did not hold against the plain
@@ -1415,6 +1427,190 @@ def phase19(card, dev):
             raise AssertionError(f"lens_{name} is not deterministic lane by "
                                  f"lane")
     return rows
+
+
+#: the diagonal PCG's three passes (``ops/diag_pcg.py``), phase 20
+DIAG_PASSES = ("start", "update", "direction")
+
+
+def passes20(card, dev, n=1024, lanes=(128, 65)):
+    """20a: each diagonal-PCG pass at (B, L) for B in ``lanes`` on random
+    state (A in [1, 1e4], as 1 + C/σ² spans): against its plain version in
+    float64 on the card, a rerun, and its time beside its bound. The update
+    is timed with every lane done (α = 0: the same traffic, the state left
+    as it was) and the direction with none kept. Returns {(pass, B): its
+    row}."""
+    import torch
+
+    from muse_tpu_torch.ops import diag_pcg as dp
+
+    L = 2 * n * (n // 2 + 1)
+    f4, rows = 4, {}
+    for B in lanes:
+        g = torch.Generator(device=dev).manual_seed(20 + B)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        A = 1.0 + 1e4 * torch.rand((1, L), generator=g, device=dev)
+        scale = 100.0 * torch.rand((1, L), generator=g, device=dev)
+        xt, Z0, p = rnd(B, L), rnd(B, L), rnd(B, L)
+        c = 1e-3 * float(torch.linalg.vector_norm(scale * xt[0] / 1e-4))
+        r, p0, lanes0 = dp.diag_pcg_start(A, xt, Z0, c, scale, 1e-4)
+        pAp = torch.sum(p * A * p, -1)
+
+        def f64(t):
+            return t.double() if t.is_floating_point() else t
+
+        def lanes64(ln):
+            return dp.PcgLanes(*(f64(t) for t in ln))
+        done = lanes0._replace(done=torch.ones_like(lanes0.done))
+        moving = lanes0._replace(keep=torch.zeros_like(lanes0.keep),
+                                 beta=torch.full_like(lanes0.beta, 0.5))
+        cases = {
+            "start": (lambda: dp.diag_pcg_start(A, xt, Z0, c, scale, 1e-4),
+                      lambda: dp.diag_pcg_start_plain(
+                          f64(A), f64(xt), f64(Z0), c, f64(scale), 1e-4),
+                      lambda: dp.diag_pcg_start_plain(A, xt, Z0, c, scale,
+                                                      1e-4),
+                      f4 * (4 * B * L + 2 * L), (0, 1),
+                      ("rz", "r_norm", "thresh")),
+            "update": (lambda: dp.diag_pcg_update(
+                           Z0, r.clone(), p, A, pAp,
+                           dp.PcgLanes(*(t.clone() for t in lanes0))),
+                       lambda: dp.diag_pcg_update_plain(
+                           f64(Z0), f64(r), f64(p), f64(A), f64(pAp),
+                           lanes64(lanes0)),
+                       lambda: dp.diag_pcg_update_plain(Z0, r, p, A, pAp,
+                                                        lanes0),
+                       f4 * (5 * B * L + L), (0, 1),
+                       ("rz", "r_norm", "beta")),
+            "direction": (lambda: (dp.diag_pcg_direction(
+                              r, p.clone(), A, moving),),
+                          lambda: (dp.diag_pcg_direction_plain(
+                              f64(r), f64(p), f64(A), lanes64(moving)),),
+                          lambda: dp.diag_pcg_direction_plain(r, p, A,
+                                                              moving),
+                          f4 * (3 * B * L + L), (0,), ())}
+        for name, (run, plain64, plain, nbytes, vecs, sums) in cases.items():
+            got, want = run(), plain64()
+            errs = [float((got[i].double() - want[i]).abs().max()
+                          / want[i].abs().max()) for i in vecs]
+            errs += [_rel20(getattr(got[-1], k), getattr(want[-1], k))
+                     for k in sums]
+            again = run()
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip(_flat20(got), _flat20(again)))
+            del want, again
+            if name == "update":
+                timed_run = (lambda: dp.diag_pcg_update(
+                    Z0, r, p, A, pAp, done, in_place=False))
+            elif name == "direction":
+                pt = p.clone()
+                timed_run = (lambda: dp.diag_pcg_direction(r, pt, A,
+                                                           moving))
+            else:
+                timed_run = run
+            ms = cuda_ms(timed_run)
+            plain_ms = cuda_ms(plain, samples=5, per_sample=4)
+            bound, _ = least_ms(nbytes, 0)
+            rows[(name, B)] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "share": bound / ms,
+                               "max_err": max(errs)}
+            phase(f"phase 20a [{card}] diag_pcg_{name} at ({B}, {L}): "
+                  f"errors vs float64 {[f'{e:.2e}' for e in errs]}; rerun "
+                  f"bitwise {bitwise}; kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB; "
+                  f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+            if not max(errs) <= 1e-5 or max(errs[:len(vecs)]) > 1e-6:
+                raise AssertionError(f"diag_pcg_{name} disagrees with its "
+                                     f"plain version: {errs}")
+            if not bitwise:
+                raise AssertionError(f"diag_pcg_{name} is not "
+                                     f"deterministic")
+        del xt, Z0, p, r, p0
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _flat20(out):
+    """The tensors of a pass's output, its lanes' state unpacked."""
+    flat = []
+    for t in out:
+        flat += list(t) if isinstance(t, tuple) else [t]
+    return flat
+
+
+def _rel20(got, want):
+    """Largest relative gap of a per-lane sum against float64."""
+    return float(((got.double() - want).abs()
+                  / want.abs().clamp(min=1e-30)).max())
+
+
+def pipelines20(card, dev):
+    """20b: the benchmark's ``sims512`` and ``sims64`` pipelines at 1024²:
+    the start launches once a diagonal solve (``_packed_diag_pcg`` calls,
+    counted by a wrapper), the update and the direction once a PCG step,
+    and the fused kernel once a step. Returns each pipeline's deltas."""
+    import warnings
+
+    import torch
+
+    from muse_tpu_torch import MuseResult, get_H, get_J, muse_fit
+    from muse_tpu_torch.models import grf as tg
+    from muse_tpu_torch.models import grf_spectral_problem
+    from muse_tpu_torch.utils import trace
+
+    prob = grf_spectral_problem(n=1024, sigma_noise=0.01, device=dev)
+    solve, out = tg._packed_diag_pcg, {}
+    solves = [0]
+
+    def counting(*a, **k):
+        solves[0] += 1
+        return solve(*a, **k)
+    tg._packed_diag_pcg = counting
+    try:
+        for nsims, h_sims in ((NSIMS2, H_NSIMS2), (NSIMS18, H_NSIMS18)):
+            solves[0] = 0
+            c0 = trace.counters()
+            t0 = time.perf_counter()
+            res = MuseResult()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                muse_fit(res, prob, 0.5, nsims=nsims, max_batch=MAX_BATCH2,
+                         theta_rtol=1e-5, Hinv_update="sims", alpha=1.0,
+                         maxsteps=50, grad_z_atol=1e-2, seed=20)
+                get_J(res, prob, nsims=nsims, max_batch=MAX_BATCH2, seed=20,
+                      warn_reuse=False)
+                get_H(res, prob, nsims=h_sims, implicit_diff=True,
+                      implicit_diff_precond=prob.suggested_h_precond,
+                      max_batch=MAX_BATCH2, seed=20)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = {k: v - c0[k] for k, v in trace.counters().items()}
+            got = {"solves": solves[0],
+                   "pcg_steps": c["batched_cg.curvature_steps"],
+                   "fused": c["spectrum_quadform_and_grad_cuda.launches"],
+                   **{k: c[f"diag_pcg_{k}_cuda.launches"]
+                      for k in DIAG_PASSES}}
+            phase(f"phase 20b [{card}] pipeline {nsims} sims: {got}; θ̂ "
+                  f"{float(res.theta[0]):.5f} ± {float(res.sigma[0]):.5f}, "
+                  f"{len(res.history)} iterations, {wall:.2f} s")
+            steps = got["pcg_steps"]
+            if not (got["start"] == got["solves"] > 0 and steps > 0
+                    and got["update"] == got["direction"] == steps
+                    == got["fused"]):
+                raise AssertionError(f"phase 20b: pipeline {nsims}: {got}")
+            out[nsims] = {**got, "wall_s": wall}
+    finally:
+        tg._packed_diag_pcg = solve
+    return out
+
+
+def phase20(card, dev):
+    """The diagonal PCG's passes: 20a against their plain versions with
+    their times, 20b the pipelines' launch gates."""
+    return {"passes": passes20(card, dev), "pipelines": pipelines20(card,
+                                                                   dev)}
 
 
 def phase13(card, dev, field):
@@ -3687,6 +3883,8 @@ def main():
     phase(f"phases 1-18 took {time.perf_counter() - t_start:.1f} s")
     lens19 = phase19(card, dev)
     phase(f"phases 1-19 took {time.perf_counter() - t_start:.1f} s")
+    diag20 = phase20(card, dev)
+    phase(f"phases 1-20 took {time.perf_counter() - t_start:.1f} s")
 
     # every shape a kernel was launched at in this run was held against
     # the plain version in phase 3 or 6
@@ -3783,7 +3981,19 @@ def main():
                              lensing12["lens_launches"][k]}}
         for k, rows in ((k, [lens19[r] for r in lens19
                              if r.split("_")[0] == k])
-                        for k in LENS_PASSES)]}))
+                        for k in LENS_PASSES)] + [{
+        "name": f"diag_pcg_{k}", "route": "cuda",
+        "source": "muse_tpu_torch/csrc/diag_pcg.cu", "replaces": None,
+        "launches": sum(p[k] for p in diag20["pipelines"].values()),
+        "max_abs_err": max(diag20["passes"][(k, B)]["max_err"]
+                           for B in (128, 65)),
+        "ms": diag20["passes"][(k, 128)]["ms"],
+        "plain_ms": diag20["passes"][(k, 128)]["plain_ms"],
+        "bound_ms": diag20["passes"][(k, 128)]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {f"pipeline_{s}_sims": p[k] for s, p in
+                             diag20["pipelines"].items()}}
+        for k in DIAG_PASSES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

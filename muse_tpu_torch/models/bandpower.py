@@ -23,9 +23,10 @@ score and the prior are all that is this module's own. Every density,
 score, MAP solve and the exact implicit-diff H preconditioner is diagonal
 elementwise work, and the hermitian white noise is drawn by indexing
 (``hermitian_white_packed``). A MUSE iteration runs no FFT at any nbands.
-The MAP is the batched PCG of ``ops/cg.py``, whose operator and curvature
-come from the fused ``spectrum_quadform_and_grad`` kernel on a card, one
-launch per CG step.
+The MAP is the batched diagonal PCG of ``ops/diag_pcg.py``, whose operator
+and curvature come from the fused ``spectrum_quadform_and_grad`` kernel on
+a card, one launch per CG step, and its vector updates from that module's
+three passes.
 
 The per-band score g_b = ½ Σ_{c ∈ band b} x̃_c² C/(C+σ²)² is a segment sum
 over static band indices. ``index_add_`` on a card accumulates with

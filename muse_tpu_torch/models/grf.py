@@ -23,7 +23,8 @@ weight in the same pass.
 ``grf_spectral_problem`` carries x and the white latent in the isometric
 packing ṽ = pack(√w/n · rfft2(v)), where every operator is diagonal: its
 MAP is a batched PCG whose operator and curvature run in the fused
-``spectrum_quadform_and_grad`` kernel, and its analytic θ-score in one
+``spectrum_quadform_and_grad`` kernel and whose vector updates run in the
+three passes of ``ops/diag_pcg.py``, and its analytic θ-score in one
 ``spectrum_quadforms`` launch.
 
 Transforms are ``torch.fft`` with the default "backward" norm, as
@@ -154,47 +155,31 @@ def _unpack_spectrum(zt: torch.Tensor, sqw_n: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_diag_pcg(A, b, Z0, atol, cg_maxiter, grid, nz=None,
-                     reduce=None):
+                     reduce=None, scale=None, divisor=1.0):
     """Batched PCG on the diagonal system A·z = b in packed coordinates,
-    preconditioned by the exact inverse 1/A. ``A`` is (1, L), ``b`` and the
-    warm start ``Z0`` are (B, L), and ``grid`` = (n, 2m) is the kernels'
-    view of a packed (L,). The operator and the curvature (Ap, pᵀAp) of
-    every step come from one ``spectrum_quadform_and_grad`` call: the fused
+    preconditioned by the exact inverse 1/A (``ops/diag_pcg.py``). ``A`` is
+    (1, L), the warm start ``Z0`` (B, L), and the right-hand side the
+    (B, L) ``b``, or with the (1, L) ``scale`` scale·b/divisor, formed
+    inside the solve's first pass; ``grid`` = (n, 2m) is the kernels' view
+    of a packed (L,). The operator and the curvature (Ap, pᵀAp) of every
+    step come from one ``spectrum_quadform_and_grad`` call: the fused
     kernel on a card. Returns (the (B, L) solution, the MAP solver's aux
     dict).
 
     The CG residual r = b − Az is −∇z(−log_like) exactly, so the stop
     follows the solver-wide ∇z tolerance, an ABSOLUTE gradient norm:
-    ``atol``·√nz (the L∞→L2 envelope; ``nz`` is the latent's length, L
-    unless the caller's latent lives in pixels) over ‖b‖ is the per-lane
-    relative tolerance that ``batched_cg`` takes.
+    ‖r‖ < ``atol``·√nz (the L∞→L2 envelope; ``nz`` is the latent's length,
+    L unless the caller's latent lives in pixels).
 
     Under a field axis the vectors are this rank's rows of the grid,
     ``grid`` is their (rows, 2m) view, ``nz`` the WHOLE latent's length and
     ``reduce`` the mesh's field sum: ‖b‖ and every sum of the loop are
-    global, and the kernel still computes each launch's local part."""
-    from ..ops.cg import batched_cg
-    from ..ops.grf_spectrum import spectrum_quadform_and_grad
+    global, and the kernels still compute each launch's local part."""
+    from ..ops.diag_pcg import batched_diag_pcg
 
-    A_grid = A.reshape(grid)
-    r0 = b - A * Z0
-    if reduce is None:
-        b_norm = torch.linalg.vector_norm(b, dim=-1)
-    else:
-        b_norm = torch.sqrt(reduce(torch.sum(b * b, -1)))
-    rel_tol = atol * float(np.sqrt(np.float32(nz or Z0.shape[1]))) / \
-        torch.clamp(b_norm, min=1e-30)
-
-    def matvec_and_curvature(P):
-        quad, half = spectrum_quadform_and_grad(
-            P.reshape((P.shape[0],) + grid), A_grid)
-        return half.reshape(P.shape), quad
-
-    res = batched_cg(None, None, Z0, tol=rel_tol, maxiter=cg_maxiter,
-                     precond=lambda R: R / A, r0=r0, z0=r0 / A,
-                     b_norm=b_norm,
-                     matvec_and_curvature=matvec_and_curvature,
-                     reduce=reduce)
+    res = batched_diag_pcg(A, b, Z0, grid,
+                   atol * float(np.sqrt(np.float32(nz or Z0.shape[1]))),
+                   cg_maxiter, scale=scale, divisor=divisor, reduce=reduce)
     return res.x, {"converged": res.converged,
                    "failed": ~torch.isfinite(res.r_norm),
                    "iterations": res.iterations, "g_norm": res.r_norm}
@@ -339,9 +324,9 @@ def _packed_spectral_problem(name: str, cfg: GrfConfig, model_on,
     def zhat_cg(xs, Z0, th_flat, atol):
         """Batched PCG with the diagonal operator A = 1 + C/σ²: no FFT."""
         C2 = _C2(th_flat)[None]
-        return _packed_diag_pcg(1.0 + C2 / s2, torch.sqrt(C2) * xs / s2, Z0,
-                                atol, cg_maxiter, grid, nz=2 * n * nr,
-                                reduce=reduce)
+        return _packed_diag_pcg(1.0 + C2 / s2, xs, Z0, atol, cg_maxiter,
+                                grid, nz=2 * n * nr, reduce=reduce,
+                                scale=torch.sqrt(C2), divisor=s2)
 
     def zhat_direct(xs, Z0, th_flat, atol):
         C2 = _C2(th_flat)[None]
@@ -803,9 +788,11 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         keeps w₂ and never computes ũ. ``"direct"``: x̃ = √C·ũ + σ·ẽ from
         the same sampler. ``"fft"``: the two whites are packed rfft2s of
         pixel normals.
-      * ``solver="cg"``: the batched PCG of ``ops/cg.py`` with A = 1 + C/σ²
-        and M⁻¹ = 1/A; its operator and curvature (Ap, pᵀAp) come from the
-        fused ``spectrum_quadform_and_grad`` kernel on a card.
+      * ``solver="cg"``: the batched diagonal PCG of ``ops/diag_pcg.py``
+        with A = 1 + C/σ² and M⁻¹ = 1/A; its operator and curvature
+        (Ap, pᵀAp) come from the fused ``spectrum_quadform_and_grad``
+        kernel and its vector updates from the three passes of
+        ``csrc/diag_pcg.cu`` on a card.
         ``"direct"``: the closed form û = √C x̃/(σ²+C). ``"lbfgs"``: no
         ``custom_zhat``, so the MAPs take the generic batched L-BFGS
         (``ops/lbfgs.py``) on the log-likelihood.

@@ -1,4 +1,5 @@
 from .cg import BatchedCgResult, batched_cg
+from .diag_pcg import batched_diag_pcg
 from .grf_spectrum import (SpectrumQuadform, SpectrumQuadforms, pack_rfft2,
                            pack_weights, spectrum_quadform,
                            spectrum_quadform_and_grad,
@@ -15,7 +16,8 @@ from .lens_planes import (lens_combine, lens_contract, lens_expand,
 from .newton_cg import NewtonCgResult, batched_newton_cg
 from .varpro import VarproResult, batched_varpro
 
-__all__ = ["BatchedCgResult", "batched_cg", "LbfgsResult", "batched_lbfgs",
+__all__ = ["BatchedCgResult", "batched_cg", "batched_diag_pcg",
+           "LbfgsResult", "batched_lbfgs",
            "NewtonCgResult", "batched_newton_cg", "VarproResult",
            "batched_varpro", "SpectrumQuadform", "pack_rfft2",
            "pack_weights", "spectrum_quadform", "spectrum_quadform_and_grad",

@@ -119,4 +119,17 @@ def load_library() -> ctypes.CDLL:
     lib.muse_lens_combine_f32.restype = ci
     lib.muse_lens_spread_f32.argtypes = [vp, vp, vp, ll, ci, vp]
     lib.muse_lens_spread_f32.restype = ci
+    fl = ctypes.c_float
+    lib.muse_diag_pcg_slab.argtypes = []
+    lib.muse_diag_pcg_slab.restype = ll
+    lib.muse_diag_pcg_start_f32.argtypes = [vp, vp, fl, vp, vp, vp, vp, vp,
+                                            ll, ll, ci, vp]
+    lib.muse_diag_pcg_update_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                             vp, ll, ll, ci, vp]
+    lib.muse_diag_pcg_direction_f32.argtypes = [vp, vp, vp, vp, vp, ll, ll,
+                                                ci, vp]
+    lib.muse_diag_pcg_finalize_f32.argtypes = [ci, vp, ci, vp, fl, vp, vp, vp,
+                                               vp, vp, vp, vp, ll, vp]
+    for name in ("start", "update", "direction", "finalize"):
+        getattr(lib, f"muse_diag_pcg_{name}_f32").restype = ci
     return lib

@@ -96,7 +96,8 @@ COUNTERS = {
     "herm_white_cuda.launches", "lens_expand_cuda.launches",
     "lens_combine_cuda.launches", "lens_residual_cuda.launches",
     "lens_spread_cuda.launches", "lens_contract_cuda.launches",
-    "sample_whites.batched_lanes",
+    "diag_pcg_start_cuda.launches", "diag_pcg_update_cuda.launches",
+    "diag_pcg_direction_cuda.launches", "sample_whites.batched_lanes",
     "sample_whites.looped_lanes", "muse_fit.host_syncs",
     "get_J.host_syncs", "get_H.host_syncs",
     "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
