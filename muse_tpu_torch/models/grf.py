@@ -664,6 +664,7 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     return prob
 
 
+@trace.spanned("muse.build.problem")
 def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                       sigma_noise: float = 1.0, gamma: float = 2.0,
                       k0: float = 1.0, theta_true: float = 0.0,
@@ -691,12 +692,20 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     Under a field-axis ``mesh=`` passed to the solver the problem takes the
     gathered route (``solver/compiled.py``): its Wiener MAP and its
     log-likelihood, the quadform included, run on the whole field.
+
+    ``grf_field_problem.host_syncs`` counts the build's blocking
+    device→host reads: one for an ``x_obs`` tensor, none otherwise.
     """
     from ..ops.grf_spectrum import (pack_rfft2, pack_weights,
                                     spectrum_quadform,
                                     spectrum_quadform_plain,
                                     spectrum_quadforms,
                                     spectrum_quadforms_plain)
+
+    def read(a) -> np.ndarray:
+        if isinstance(a, torch.Tensor):
+            grf_field_problem.host_syncs += 1
+        return _host(a)
 
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, False, device=device)
     n = cfg.n
@@ -753,7 +762,7 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     if x_obs is None:
         x_obs, _ = sample_x_z(lane_generator(data_seed, dev), theta_true)
     else:
-        x_obs = torch.tensor(np.asarray(_host(x_obs), np.float32),
+        x_obs = torch.tensor(np.asarray(read(x_obs), np.float32),
                              device=dev)
 
     prob = SimpleMuseProblem(x_obs, sample_x_z, log_like, log_prior,
@@ -762,6 +771,9 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     prob.name = "grf_field_problem"
     prob.grf_config = cfg
     return prob
+
+
+trace.declare(grf_field_problem, "host_syncs")
 
 
 @trace.spanned("muse.build.problem")

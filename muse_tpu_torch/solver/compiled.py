@@ -80,13 +80,21 @@ from ..utils import trace
 from ..utils.keys import lane_generator
 from ..utils.tree import TreeSpec, tree_map
 
-__all__ = ["CompiledProblem", "sample_whites_counts"]
+__all__ = ["CompiledProblem", "sample_whites_counts", "sample_batch_counts",
+           "h_fd_counts"]
 
 #: the lanes :meth:`CompiledProblem.sample_whites` drew through a problem's
 #: ``sample_whites_batched`` and through the per-lane loop. They are kept
 #: here, not on the method, which a caller may wrap.
 sample_whites_counts = trace.declare(SimpleNamespace(), "batched_lanes",
                                      "looped_lanes", site="sample_whites")
+#: the lanes the keyed route drew one generator at a time
+#: (:meth:`CompiledProblem._sample_batch`: ``muse_step``, ``j_sims``,
+#: ``h_fiducial``, ``h_fd``)
+sample_batch_counts = trace.declare(SimpleNamespace(), "looped_lanes",
+                                    site="sample_batch")
+#: the MAP solves of :meth:`CompiledProblem.h_fd`'s stencil
+h_fd_counts = trace.declare(SimpleNamespace(), "lanes", site="h_fd")
 
 
 def _lane(tree, i):
@@ -181,9 +189,12 @@ class CompiledProblem:
                                        self.spec.unflatten(th_flat))
         return x, self.zspec.flatten(z).to(self.dtype)
 
+    @trace.spanned("muse.step.sample")
     def _sample_batch(self, seeds, th_flats):
         """Sample lane i from ``seeds[i]`` at θ ``th_flats[i]`` and stack
-        (z as the problem draws it: whole on the gathered route)."""
+        (z as the problem draws it: whole on the gathered route), one
+        generator a lane; :data:`sample_batch_counts` counts the lanes."""
+        sample_batch_counts.looped_lanes += len(seeds)
         xs, Zs = zip(*(self._sample_flat(s, t)
                        for s, t in zip(seeds, th_flats)))
         return tree_map(lambda *v: torch.stack(v), *xs), torch.stack(Zs)
@@ -373,6 +384,7 @@ class CompiledProblem:
         Z, aux = self._solve_maps(xs, self.cols.keep(Zs), th, atol)
         return {"g": self._grads_th(xs, self._whole(Z), th), "Z": Z, **aux}
 
+    @trace.spanned("muse.h.fiducial")
     def h_fiducial(self, seeds, th, atol):
         """get_H fiducial fits: sims at θ₀, MAP from ẑ_guess_from_truth
         (src/muse.jl:417-423)."""
@@ -381,6 +393,7 @@ class CompiledProblem:
                                   atol)
         return {"Z": Z, **aux}
 
+    @trace.spanned("muse.h.fd")
     def h_fd(self, seeds, th, steps, Zfid, atol, offsets):
         """get_H finite-difference mode, batched.
 
@@ -389,7 +402,8 @@ class CompiledProblem:
         warm-started from the sim's fiducial fit, θ-gradient at θ₀
         (src/muse.jl:426-433). All nsims·nθ·stencil solves run as one
         batch. Returns g of shape (nsims, nθ, stencil, nθ). ``Zfid`` is
-        the solver's (this rank's columns on the gathered route)."""
+        the solver's (this rank's columns on the gathered route);
+        :data:`h_fd_counts` counts the solves."""
         nsims, ntheta, ns = len(seeds), th.shape[0], len(offsets)
         eye = torch.eye(ntheta, dtype=self.dtype, device=self.device)
         offs = torch.as_tensor(offsets, dtype=self.dtype, device=self.device)
@@ -400,6 +414,7 @@ class CompiledProblem:
                                        * eye[:, None, :])
         flat_seeds = [s for s in seeds for _ in range(ntheta * ns)]
         flat_th = list(th_pert.reshape(-1, ntheta)) * nsims
+        h_fd_counts.lanes += len(flat_seeds)
         Z0 = Zfid[:, None, :].expand(nsims, ntheta * ns, self.nz)
         xs, _ = self._sample_batch(flat_seeds, flat_th)
         Z, aux = self._solve_maps(xs, Z0.reshape(-1, self.nz), th, atol)

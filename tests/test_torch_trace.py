@@ -100,7 +100,9 @@ COUNTERS = {
     "diag_pcg_direction_cuda.launches", "sample_whites.batched_lanes",
     "sample_whites.looped_lanes", "muse_fit.host_syncs",
     "get_J.host_syncs", "get_H.host_syncs",
-    "finalize_result.host_syncs", "grf_spectral_problem.host_syncs"}
+    "finalize_result.host_syncs", "grf_spectral_problem.host_syncs",
+    "sample_batch.looped_lanes", "h_fd.lanes",
+    "grf_field_problem.host_syncs"}
 
 
 _FRESH = ("import json; from muse_tpu_torch.utils import trace; "
@@ -258,3 +260,44 @@ def test_a_pipeline_spans_and_syncs(spans_on):
                 if k.endswith(".host_syncs") and v} <= {
             f"{site}.host_syncs", "batched_cg.host_syncs",
             "finalize_result.host_syncs"}
+
+
+def test_the_keyed_route_spans_and_counts(spans_on):
+    """The field GRF (no white split) at n = 32, 8 sims in one chunk:
+    every outer iteration's keyed step draws all its lanes one generator
+    at a time inside ``muse.step.sample``; get_J reuses the fit's scores;
+    FD get_H draws its fiducial lanes and its ±ε stencil there too, inside
+    ``muse.h.fiducial`` and ``muse.h.fd``. The build reads a tensor
+    ``x_obs`` once and nothing otherwise."""
+    from muse_tpu_torch.models import grf_field_problem
+
+    c0 = trace.counters()
+    base = grf_field_problem(n=N, sigma_noise=0.1, device="cpu")
+    c1 = trace.counters()
+    prob = grf_field_problem(n=N, sigma_noise=0.1, device="cpu",
+                             x_obs=base.x)
+    c2 = trace.counters()
+    assert _delta(c0, c1)["grf_field_problem.host_syncs"] == 0
+    assert _delta(c1, c2)["grf_field_problem.host_syncs"] == 1
+    assert trace.summary()["spans"]["muse.build.problem"]["n"] == 2
+    trace.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = mt.muse_fit(mt.MuseResult(), prob, 0.5, nsims=NSIMS,
+                          maxsteps=MAXSTEPS, theta_rtol=1e-4, seed=1)
+        mt.get_J(res, prob, nsims=NSIMS, warn_reuse=False)
+        mt.get_H(res, prob, nsims=NSIMS_H)
+    s = trace.summary()
+    c = _delta(c2, s["counters"])
+    its = len(res.history)
+    spans = s["spans"]
+    assert spans["muse.fit.step"]["n"] == its
+    assert spans["muse.step.sample"]["n"] == its + 2
+    assert spans["muse.h.fiducial"]["n"] == spans["muse.h.fd"]["n"] == 1
+    assert "muse.sample_whites" not in spans
+    assert c["sample_batch.looped_lanes"] == (its * (NSIMS + 1) + NSIMS_H
+                                              + 2 * NSIMS_H)
+    assert c["h_fd.lanes"] == 2 * NSIMS_H
+    assert c["sample_whites.looped_lanes"] == 0
+    assert s["spans"]["muse.get_H"]["s"] >= (spans["muse.h.fiducial"]["s"]
+                                             + spans["muse.h.fd"]["s"])
